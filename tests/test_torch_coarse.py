@@ -1,0 +1,155 @@
+"""uwspr_tpu_torch coarse front against the JAX package: drift-model bank,
+STFT power, smoothed SNR spectrum, peak pick, SLM drift, the conv sync grid
+and the whole coarse stage.
+
+Inputs are made with numpy from a seed and go through both packages on the
+CPU. Tolerances, stated per comparison: the bank, peaks and integer fields
+are exact; f32 reductions whose summation order differs between XLA and
+torch are held to a few f32 ulps relative (rtol 1e-5); the bf16 forms of
+both packages round the same operands to bf16 and accumulate in f32, so
+they agree to the same f32 tolerance.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uwspr_tpu.coarse import search as jsearch
+from uwspr_tpu.config import CoarseConfig, PipelineConfig
+from uwspr_tpu.io.channel import awgn
+from uwspr_tpu.models.slm import slm_frequency_drift_jnp
+from uwspr_tpu.ops.stft import stft_power_core as jax_stft
+from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
+from uwspr_tpu.protocol.modulate import synthesize_frame
+from uwspr_tpu_torch.coarse import search as tsearch
+from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
+from uwspr_tpu_torch.ops.stft import stft_power_core as torch_stft
+from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+
+CFG = CoarseConfig()
+M_HALF = CFG.fft_size // 2
+CB0, CB1 = M_HALF - CFG.hpbm - 10, M_HALF + CFG.hpbm + 10
+
+
+def _windows(n=2, seed=3):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        z = synthesize_frame("K1ABC", "FN42", 37,
+                             start_sample=int(rng.integers(0, 2000)),
+                             freq_offset=float(rng.uniform(-5, 5)))
+        out.append(awgn(z, -20, rng=rng))
+    return np.stack(out)
+
+
+Z = _windows()
+
+
+def test_drift_models_match():
+    for cfg in (CFG, CoarseConfig(maxdrift=2)):
+        a, b = jsearch.build_drift_models(cfg), tsearch.build_drift_models(cfg)
+        for f in ("offsets", "is_nonlinear", "drift", "slm_params"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        assert jsearch.max_peaks(cfg) == tsearch.max_peaks(cfg)
+
+
+@pytest.mark.parametrize("impl,col", [("fft", None), ("fft", (CB0, CB1)),
+                                      ("matmul_bf16", (CB0, CB1)),
+                                      ("matmul_bf16", None)])
+def test_stft_power_matches(impl, col):
+    ref = np.asarray(jax_stft(jnp.asarray(Z), n_ffts=CFG.n_ffts,
+                              size=CFG.fft_size, hop=CFG.spb // 2, impl=impl,
+                              col_window=col))
+    got = torch_stft(torch.from_numpy(Z), n_ffts=CFG.n_ffts,
+                     size=CFG.fft_size, hop=CFG.spb // 2, impl=impl,
+                     col_window=col).numpy()
+    assert got.shape == ref.shape and got.dtype == np.float32
+    # f32 FFT / f32-accumulated bf16 products: summation order only
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3 * ref.max())
+
+
+def _ps(impl="matmul_bf16"):
+    ps = jax_stft(jnp.asarray(Z), n_ffts=CFG.n_ffts, size=CFG.fft_size,
+                  hop=CFG.spb // 2, impl=impl, col_window=(CB0, CB1))
+    return np.array(ps)                                   # writable copy
+
+
+def test_smoothed_spectrum_and_peaks_match():
+    ps = _ps()
+    ref = np.array(jsearch.smoothed_snr_spectrum(
+        jnp.asarray(ps), hpbm=CFG.hpbm, m=M_HALF, col0=CB0))
+    got = tsearch.smoothed_snr_spectrum(torch.from_numpy(ps), hpbm=CFG.hpbm,
+                                        m=M_HALF, col0=CB0).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5)      # column sums
+    cfg = PipelineConfig()
+    jdec = JaxDecoder(cfg)
+    tdec = DeviceDecoder(_serving(cfg), device="cpu")
+    v, i, s = tdec._peaks(torch.from_numpy(ref))
+    for w in range(len(ref)):
+        jv, ji, js = (np.asarray(x) for x in jdec._peaks(jnp.asarray(ref[w])))
+        np.testing.assert_array_equal(v[w].numpy(), jv)   # exact on equal sm
+        np.testing.assert_array_equal(i[w].numpy(), ji)
+        np.testing.assert_allclose(s[w].numpy(), js, rtol=1e-6)
+
+
+def test_slm_drift_matches():
+    rng = np.random.default_rng(4)
+    p = rng.uniform(-3, 3, size=(6, 4)).astype(np.float32)
+    p[0] = 0.0                                            # ||q|| == 0 case
+    t = ((np.arange(162) * 111) // 162).astype(np.float32)[None, :]
+    ref = np.asarray(slm_frequency_drift_jnp(
+        *(jnp.asarray(p[:, k:k + 1]) for k in range(4)), 1500.0,
+        jnp.asarray(t)))
+    got = slm_frequency_drift_torch(
+        *(torch.from_numpy(p[:, k:k + 1]) for k in range(4)), 1500.0,
+        torch.from_numpy(t)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_conv_grid_matches(dtype):
+    ps = _ps("fft")
+    bank = tsearch.build_drift_models(CFG)
+    sign = 2.0 * np.asarray(jsearch.SYNC_VECTOR, np.float32) - 1.0
+    if0 = np.array([[240, 245, 250], [247, 252, 258]]) - CB0
+    fw = (M_HALF - CFG.hpbm - 7 - CB0, M_HALF + CFG.hpbm + 7 - CB0)
+    got = tsearch.coarse_score_grid(
+        torch.from_numpy(ps), torch.from_numpy(if0),
+        torch.from_numpy(bank.offsets), torch.from_numpy(sign),
+        f_window=fw, dtype=dtype).numpy()
+    for w in range(2):
+        ref = np.asarray(jsearch.coarse_score_grid(
+            jnp.asarray(ps[w]), jnp.asarray(if0[w]),
+            jnp.asarray(bank.offsets), jnp.asarray(sign), impl="conv",
+            f_window=fw, dtype=dtype))
+        assert got[w].shape == ref.shape == (3, 5, 26, len(bank.offsets))
+        # 162-term f32 sums in another order: a few ulps of ss and pw
+        np.testing.assert_allclose(got[w], ref, rtol=1e-5, atol=1e-6)
+
+
+def _serving(cfg):
+    from uwspr_tpu.config import with_serving_defaults
+    return with_serving_defaults(cfg, 2)
+
+
+def test_coarse_stage_matches():
+    """Peaks, selection and per-candidate metadata of the whole coarse
+    stage under the serving config: valid, shift, mode, drift and SLM
+    params exact; freq exact; snr to 1e-5 relative."""
+    cfg = _serving(PipelineConfig())
+    jdec = JaxDecoder(cfg)
+    ref = jax.vmap(jdec._coarse_stage)(jnp.asarray(Z.astype(np.complex64)))
+    tdec = DeviceDecoder(cfg, device="cpu")
+    with torch.no_grad():
+        got = tdec._coarse_stage(torch.from_numpy(Z.astype(np.complex64)))
+    valid = np.asarray(ref["valid"])
+    np.testing.assert_array_equal(got["valid"].numpy(), valid)
+    assert valid.any()
+    for key in ("shift", "mode", "drift", "slm_params", "freq"):
+        np.testing.assert_array_equal(got[key].numpy()[valid],
+                                      np.asarray(ref[key])[valid],
+                                      err_msg=key)
+    np.testing.assert_allclose(got["snr"].numpy(), np.asarray(ref["snr"]),
+                               rtol=1e-5)

@@ -1,0 +1,98 @@
+"""The decoder's constant state, carried between the JAX package and the port.
+
+The decoder has no learned weights. Its parameters are the constants that
+uwspr_tpu's ``DeviceDecoder.__init__`` builds (jit_decoder.py:113-137),
+named here after those attributes without the leading underscore:
+
+    offsets      (M, 162) int32  per-symbol bin offsets of the drift models
+    is_nl        (M,)     bool   nonlinear (SLM) model flags, linear first
+    model_drift  (M,)     f32    linear drift per model (0 for SLM)
+    model_slm    (M, 4)   f32    SLM (V1, V2, p1, p2) per model (0 for linear)
+    sign         (162,)   f32    sync sign 2*SYNC_VECTOR - 1
+    sync_bit     (162,)   bool   SYNC_VECTOR as bool
+    mettab       (2, 256) int32  Fano metric table
+    perm         (162,)   int    interleave permutation
+    jiggles      (J,)     int32  retry lag offsets
+
+``state_numpy(config)`` builds them the way the JAX decoder does;
+``state_from_numpy(d, device)`` turns such a dict (for example one read off
+a JAX ``DeviceDecoder``) into the port's tensors on ``device``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from uwspr_tpu.config import PipelineConfig
+from uwspr_tpu.protocol.constants import (
+    FANO_METTAB,
+    INTERLEAVE_PERM,
+    SYNC_VECTOR,
+)
+from uwspr_tpu_torch.coarse.search import build_drift_models
+from uwspr_tpu_torch.demod.finesync import jiggle_offsets
+from uwspr_tpu_torch.device import resolve_device
+
+# name -> (numpy dtype kind the value must have, torch dtype on the device)
+STATE_SPEC = {
+    "offsets": ("i", torch.int64),
+    "is_nl": ("b", torch.bool),
+    "model_drift": ("f", torch.float32),
+    "model_slm": ("f", torch.float32),
+    "sign": ("f", torch.float32),
+    "sync_bit": ("b", torch.bool),
+    "mettab": ("i", torch.int32),
+    "perm": ("i", torch.int64),
+    "jiggles": ("i", torch.int64),
+}
+
+
+def state_numpy(config: PipelineConfig) -> dict[str, np.ndarray]:
+    """The constants of jit_decoder.py:113-137 for ``config``."""
+    models = build_drift_models(config.coarse)
+    dcfg = config.demod
+    return {
+        "offsets": np.asarray(models.offsets),
+        "is_nl": np.asarray(models.is_nonlinear),
+        "model_drift": np.asarray(models.drift),
+        "model_slm": np.asarray(models.slm_params),
+        "sign": 2.0 * SYNC_VECTOR.astype(np.float32) - 1.0,
+        "sync_bit": SYNC_VECTOR.astype(bool),
+        "mettab": np.asarray(FANO_METTAB),
+        "perm": np.asarray(INTERLEAVE_PERM),
+        "jiggles": jiggle_offsets(dcfg.n_jiggles, dcfg.iifac),
+    }
+
+
+def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device
+                     ) -> dict[str, torch.Tensor]:
+    """Validate a state dict of numpy arrays and move it to ``device``."""
+    dev = resolve_device(device)
+    missing = set(STATE_SPEC) - set(d)
+    extra = set(d) - set(STATE_SPEC)
+    if missing or extra:
+        raise ValueError(f"decoder state: missing {sorted(missing)}, "
+                         f"unexpected {sorted(extra)}")
+    out = {}
+    for name, (kind, tdtype) in STATE_SPEC.items():
+        a = np.asarray(d[name])
+        if a.dtype.kind not in (kind, "u" if kind == "i" else kind):
+            raise ValueError(f"decoder state {name}: dtype {a.dtype} is not "
+                             f"of kind {kind!r}")
+        out[name] = torch.as_tensor(np.ascontiguousarray(a)).to(
+            device=dev, dtype=tdtype)
+    M = out["offsets"].shape[0]
+    shapes = {"offsets": (M, 162), "is_nl": (M,), "model_drift": (M,),
+              "model_slm": (M, 4), "sign": (162,), "sync_bit": (162,),
+              "mettab": (2, 256), "perm": (162,)}
+    for name, shape in shapes.items():
+        if tuple(out[name].shape) != shape:
+            raise ValueError(f"decoder state {name}: shape "
+                             f"{tuple(out[name].shape)}, expected {shape}")
+    if out["jiggles"].dim() != 1:
+        raise ValueError("decoder state jiggles must be 1-D")
+    return out
+
+
+__all__ = ["STATE_SPEC", "state_from_numpy", "state_numpy"]

@@ -1,0 +1,565 @@
+"""Batched window decoder on one device: samples in, packed messages out.
+
+Counterpart of uwspr_tpu/pipeline/jit_decoder.py::DeviceDecoder on its
+serving path, ``_decode_windows_batched`` (jit_decoder.py:698-730) under
+``with_serving_defaults`` with cross-window candidate compaction:
+
+  STFT power -> smoothed SNR spectrum -> peak pick -> coarse sync grid
+  (conv) -> exact model selection (CUDA kernel) -> cross-window candidate
+  compaction -> phase A/B probe refinement -> joint fine grid, soft symbols
+  over all jiggles, sync/rms gates, deinterleave -> never-drop chunked
+  two-phase Fano (CUDA kernel) -> first success in jiggle order -> packed
+  (W, C, 23) float32.
+
+PyTorch runs eagerly, so the JAX decoder's vmap over windows is a batch
+dimension written out and its bounded while loops are host loops; the one
+device-to-host read per Fano phase is the gated-lane count that sizes the
+chunk loop (and skips the Fano when nothing is gated).
+
+Configurations outside this slice raise NotImplementedError rather than
+running another code path: cand_compact_lanes == 0, fano_compact_lanes ==
+0, the wideband einsum grid (hpbm > 32 or grid_impl "einsum"), the Pallas
+STFT, osd_depth > 0, fano_mode "host" and truncate_stage.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from uwspr_tpu.config import PipelineConfig
+from uwspr_tpu_torch.coarse.search import (
+    coarse_score_grid,
+    max_peaks,
+    smoothed_snr_spectrum,
+)
+from uwspr_tpu_torch.demod.finesync import (
+    make_shared_probe_lanes,
+    probe_constants,
+    probe_derotate,
+    shared_probe_eval,
+)
+from uwspr_tpu_torch.device import exact_f32, resolve_device
+from uwspr_tpu_torch.fec.fano import fano_decode_batch
+from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
+from uwspr_tpu_torch.ops.select import select_best
+from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
+from uwspr_tpu_torch.params import state_from_numpy, state_numpy
+
+_NBYTES = 10        # Fano harvest bytes; the payload is the first 7
+
+
+@dataclass
+class DeviceDecoderOutput:
+    """Typed fields of the packed output, as jit_decoder.DeviceDecoderOutput
+    (all per candidate, leading window axis where batched)."""
+
+    success: np.ndarray
+    payload: np.ndarray       # (..., C, 7) uint8 packed message
+    freq: np.ndarray
+    snr: np.ndarray
+    sync: np.ndarray
+    shift: np.ndarray
+    drift: np.ndarray
+    mode: np.ndarray
+    slm_params: np.ndarray    # (..., C, 4)
+    jiggle: np.ndarray
+    valid: np.ndarray
+    fano_overflow: np.ndarray  # per window: valid/worth lanes dropped by caps
+    fano_attempts: np.ndarray  # per window: gated (candidate, jiggle) lanes
+    osd: np.ndarray            # always 0 here (OSD is not ported)
+
+    def window(self, w: int) -> "DeviceDecoderOutput":
+        return DeviceDecoderOutput(**{
+            f.name: getattr(self, f.name)[w]
+            for f in dataclasses.fields(self)})
+
+
+def check_slice(config: PipelineConfig) -> None:
+    """Raise NotImplementedError for configurations this port does not run."""
+    c, d = config.coarse, config.demod
+    if d.cand_compact_lanes <= 0:
+        raise NotImplementedError(
+            "cand_compact_lanes == 0: the per-window refine path is not "
+            "ported; build the config with with_serving_defaults(config, W) "
+            "for W > 1")
+    if d.fano_compact_lanes <= 0:
+        raise NotImplementedError(
+            "fano_compact_lanes == 0: the per-window Fano lane cap is not "
+            "ported")
+    if c.hpbm > 32 or c.grid_impl == "einsum":
+        raise NotImplementedError(
+            "the wideband im2col einsum grid (hpbm > 32) is not ported")
+    if c.stft_impl == "pallas":
+        raise NotImplementedError("the Pallas STFT kernel is not ported")
+    if d.osd_depth > 0:
+        raise NotImplementedError("on-device OSD (osd_depth > 0) is not "
+                                  "ported")
+
+
+class DeviceDecoder:
+    """Configuration-baked batched decoder on an explicit device.
+
+    ``state`` is the decoder's constant state as numpy arrays (see
+    uwspr_tpu_torch.params); by default it is built from ``config``."""
+
+    def __init__(self, config: PipelineConfig | None = None, *,
+                 device: str | torch.device,
+                 state: dict[str, np.ndarray] | None = None,
+                 fano_mode: str = "device",
+                 truncate_stage: str | None = None):
+        if fano_mode != "device":
+            raise NotImplementedError(
+                f"fano_mode {fano_mode!r}: only the device engine is ported")
+        if truncate_stage is not None:
+            raise NotImplementedError("truncate_stage is not ported")
+        self.config = config or PipelineConfig()
+        check_slice(self.config)
+        self.device = resolve_device(device)
+        self.n_cand = max_peaks(self.config.coarse)
+        self.state = state_from_numpy(
+            state if state is not None else state_numpy(self.config),
+            self.device)
+        if self.state["jiggles"].shape[0] != self.config.demod.n_jiggles:
+            raise ValueError("state jiggles do not match n_jiggles")
+        # host-built constants, moved to the device once: a copy per call
+        # would cost host time and wait for the device each time
+        cfg = self.config.coarse
+        m = cfg.fft_size // 2
+        # column window: only the passband plus reach is ever read
+        self._cols = (max(0, m - cfg.hpbm - 10),
+                      min(cfg.fft_size, m + cfg.hpbm + 10))
+        self._stft_consts = stft_constants(cfg.fft_size, self._cols,
+                                           self.device)
+        self._probe_consts = probe_constants(self.device)
+
+    # -- public entry -------------------------------------------------------
+
+    def decode_windows_ri(self, ri: torch.Tensor | np.ndarray
+                          ) -> torch.Tensor:
+        """(W, 2, fl) float32 real/imag windows -> packed (W, C, 23) float32
+        on the decoder's device (column layout of jit_decoder.py:178-182;
+        ``unpack_output`` gives the typed fields)."""
+        ri = torch.as_tensor(ri)
+        if ri.dim() != 3 or ri.shape[1] != 2:
+            raise ValueError(f"ri must be (W, 2, fl), got {tuple(ri.shape)}")
+        if ri.dtype != torch.float32:
+            raise ValueError(f"ri must be float32, got {ri.dtype}")
+        ri = ri.to(self.device)
+        with torch.no_grad(), exact_f32():
+            pre = self.prefano(ri)
+            return self._pack(self._fano_select_batch(pre))
+
+    # -- coarse stage (jit_decoder.py:302-410) ------------------------------
+
+    def _peaks(self, sm: torch.Tensor):
+        """(W, finpb) smoothed spectra -> (valid, if0, snr_db), each (W, C):
+        strict local maxima in ascending frequency, capped at C, then stably
+        sorted by SNR descending (jit_decoder.py:234-255)."""
+        cfg = self.config.coarse
+        finpb = 2 * cfg.hpbm
+        C = self.n_cand
+        m = cfg.fft_size // 2
+        j = torch.arange(finpb, device=sm.device)
+        left = torch.roll(sm, 1, dims=-1)
+        right = torch.roll(sm, -1, dims=-1)
+        is_peak = (sm > left) & (sm > right) & (j >= 1) & (j <= finpb - 2)
+        rank = torch.cumsum(is_peak.to(torch.int64), dim=-1)
+        keep = is_peak & (rank <= C)
+        key = torch.where(keep, j, finpb + 1)
+        key = torch.cat([key, torch.full(key.shape[:-1] + (C,), finpb + 1,
+                                         dtype=key.dtype, device=sm.device)],
+                        dim=-1)
+        sel = torch.sort(key, dim=-1).values[..., :C]
+        valid = sel < finpb
+        sel = torch.clamp(sel, max=finpb - 1)
+        snr_db = 10.0 * torch.log10(torch.gather(sm, -1, sel))
+        sortkey = torch.where(valid, -snr_db, float("inf"))
+        order = torch.argsort(sortkey, dim=-1, stable=True)
+        sel = torch.gather(sel, -1, order)
+        valid = torch.gather(valid, -1, order)
+        snr_db = torch.gather(snr_db, -1, order)
+        if0 = sel - cfg.hpbm + m
+        return valid, if0, torch.where(valid, snr_db, 0.0)
+
+    def coarse_grid(self, z_all: torch.Tensor) -> dict:
+        """(W, fl) complex64 -> peaks and the (W, C, 5, 26, M) sync grid the
+        model selection walks."""
+        cfg = self.config.coarse
+        m = cfg.fft_size // 2
+        cb0 = self._cols[0]
+        stft_impl = "fft" if cfg.stft_impl == "auto" else cfg.stft_impl
+        ps = stft_power_core(z_all, n_ffts=cfg.n_ffts, size=cfg.fft_size,
+                             hop=cfg.spb // 2, impl=stft_impl,
+                             col_window=self._cols, consts=self._stft_consts)
+        sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=m, col0=cb0)
+        valid, if0, snr = self._peaks(sm)
+        grid_dtype = "f32" if cfg.grid_dtype == "auto" else cfg.grid_dtype
+        syncgrid = coarse_score_grid(
+            ps, if0 - cb0, self.state["offsets"], self.state["sign"],
+            impl="conv",
+            f_window=(m - cfg.hpbm - 1 - 6 - cb0, m + cfg.hpbm + 1 + 6 - cb0),
+            dtype=grid_dtype)
+        return {"valid": valid, "if0": if0, "snr": snr, "grid": syncgrid}
+
+    def _coarse_stage(self, z_all: torch.Tensor) -> dict:
+        cfg = self.config.coarse
+        cg = self.coarse_grid(z_all)
+        grid = cg["grid"]
+        W, C = grid.shape[:2]
+        Mdim = grid.shape[-1]
+        best, best_idx = select_best(grid.reshape((W * C,) + grid.shape[2:]),
+                                     self.state["is_nl"],
+                                     threshold=float(cfg.threshold))
+        best_idx = best_idx.reshape(W, C).to(torch.int64)
+        fi = torch.div(best_idx, 26 * Mdim, rounding_mode="floor")
+        k0 = torch.div(best_idx, Mdim, rounding_mode="floor") % 26
+        mm = best_idx % Mdim
+        m_half = cfg.fft_size // 2
+        freq = ((cg["if0"] + fi - 2) - m_half).float() * np.float32(cfg.df)
+        return {
+            "valid": cg["valid"], "snr": cg["snr"], "freq": freq.float(),
+            "shift": 128 * k0,
+            "drift": self.state["model_drift"][mm],
+            "mode": self.state["is_nl"][mm].to(torch.int64),
+            "slm_params": self.state["model_slm"][mm],
+        }
+
+    # -- refinement (jit_decoder.py:259-267, :412-570) ----------------------
+
+    def _drift_offsets(self, mode, drift, slm_params):
+        """(L,) metadata -> (L, 162) per-symbol drift in Hz (float32)."""
+        dev = drift.device
+        i = torch.arange(162, dtype=torch.float32, device=dev)
+        lin = (drift[:, None] / 2.0) * (i[None, :] - 81.0) / 81.0
+        t = torch.div(torch.arange(162, device=dev) * 111, 162,
+                      rounding_mode="floor").float()
+        nl = slm_frequency_drift_torch(
+            slm_params[:, 0:1], slm_params[:, 1:2], slm_params[:, 2:3],
+            slm_params[:, 3:4], float(self.config.coarse.cf), t[None, :])
+        return torch.where((mode == 1)[:, None], nl, lin).float()
+
+    def _refine_common(self, st: dict, probe) -> dict:
+        """Phase A (coarse lag/freq joint grid) and phase B (linear drift
+        +/-0.5) over the compacted lanes (jit_decoder.py:412-502)."""
+        dcfg = self.config.demod
+        dev = st["freq"].device
+        valid = st["valid"]
+        mode, slm_params = st["mode"], st["slm_params"]
+        C = valid.shape[0]
+        cidx = torch.arange(C, device=dev)
+        pdt = dcfg.probe_dtype
+
+        def spe(*a, **k):
+            return shared_probe_eval(*a, dtype=pdt,
+                                     consts=self._probe_consts, **k)
+        f1 = st["freq"].float()
+        shift1 = st["shift"]
+        drift1 = st["drift"]
+        dsym = self._drift_offsets(mode, drift1, slm_params)
+
+        # phase A: W = 640 is exactly minimal for the +/-128 lag grid at
+        # block 128 (jit_decoder.py:446-450); never narrow it
+        Amat1, base1 = probe(shift1, 128, 640, 128)
+        zd1 = probe_derotate(Amat1, dsym)
+        lag_grid = shift1[:, None] + torch.arange(-128, 129, 64, device=dev)
+        freq_grid = f1[:, None] + _offsets_f32(0.25, dev)[None, :]
+        s = spe(zd1, base1, lag_grid, freq_grid, n_lags=5)      # (C, 5, 5)
+        li = torch.argmax(s[:, 2, :], dim=1)          # stage 0: lag @ f0
+        shift1 = lag_grid[cidx, li]
+        fi2 = torch.argmax(s[cidx, :, li], dim=1)     # stage 1: freq @ lag
+        f1 = freq_grid[cidx, fi2]
+        sync1 = s[cidx, fi2, li]
+
+        # phase B: window centred on the refined lag
+        Amat2, base2 = probe(shift1, 96, 640, 128)
+        Amat2d = Amat2[..., 96:480]
+        base2d = base2 + 96
+        is_lin = mode != 1
+        driftp = drift1 + 0.5
+        driftm = drift1 - 0.5
+        sp = spe(probe_derotate(Amat2d, self._drift_offsets(mode, driftp,
+                                                            slm_params)),
+                 base2d, shift1[:, None], f1[:, None], n_lags=1)[:, 0, 0]
+        sm_ = spe(probe_derotate(Amat2d, self._drift_offsets(mode, driftm,
+                                                             slm_params)),
+                  base2d, shift1[:, None], f1[:, None], n_lags=1)[:, 0, 0]
+        updp = is_lin & (sp > sync1)
+        updm = is_lin & ~updp & (sm_ > sync1)
+        drift1 = torch.where(updp, driftp, torch.where(updm, driftm, drift1))
+        sync1 = torch.where(updp, sp, torch.where(updm, sm_, sync1))
+        return {
+            "valid": valid, "snr": st["snr"], "freq": f1, "shift": shift1,
+            "drift": drift1, "mode": mode, "slm_params": slm_params,
+            "sync1": sync1, "worth0": sync1 > dcfg.minsync1,
+            "Amat2": Amat2, "base2": base2,
+        }
+
+    def _prefano_tail(self, st: dict) -> dict:
+        """Joint fine grid, soft symbols over all jiggles, gates and
+        deinterleave (jit_decoder.py:504-570)."""
+        dcfg = self.config.demod
+        dev = st["freq"].device
+        C = st["shift"].shape[0]
+        cidx = torch.arange(C, device=dev)
+
+        def spe(*a, **k):
+            return shared_probe_eval(*a, dtype=dcfg.probe_dtype,
+                                     consts=self._probe_consts, **k)
+        valid = st["valid"]
+        f1, shift1, drift1 = st["freq"], st["shift"], st["drift"]
+        mode, slm_params, sync1 = st["mode"], st["slm_params"], st["sync1"]
+        dsym = self._drift_offsets(mode, drift1, slm_params)
+        zd2 = probe_derotate(st["Amat2"], dsym)
+        base2 = st["base2"]
+
+        worth = st["worth0"]
+        lag_grid = shift1[:, None] + torch.arange(-32, 33, 16, device=dev)
+        freq_grid = f1[:, None] + _offsets_f32(0.05, dev)[None, :]
+        s = spe(zd2, base2, lag_grid, freq_grid, n_lags=5)      # (C, 5, 5)
+        li = torch.argmax(s[:, 2, :], dim=1)
+        shift1 = torch.where(worth, lag_grid[cidx, li], shift1)
+        # fine freq at the post-fine-lag shift: the chosen-lag column if
+        # the lag update fired, the centre column if not
+        li = torch.where(worth, li, 2)
+        fi2 = torch.argmax(s[cidx, :, li], dim=1)
+        f1 = torch.where(worth, freq_grid[cidx, fi2], f1)
+        worth = worth & valid
+
+        # soft symbols over all jiggles
+        jig = self.state["jiggles"]
+        lag_grid = shift1[:, None] + jig[None, :]
+        sync2, p = spe(zd2, base2, lag_grid, f1[:, None],
+                       n_lags=jig.shape[0], want_symbols=True)
+        sync2 = sync2[:, 0, :]                                  # (C, J)
+        p = p[:, 0]                                             # (C,J,162,4)
+        fsymb = torch.where(self.state["sync_bit"][None, None, :],
+                            p[..., 3] - p[..., 1], p[..., 2] - p[..., 0])
+        fsum = fsymb.mean(dim=-1, keepdim=True)
+        f2sum = (fsymb * fsymb).mean(dim=-1, keepdim=True)
+        fac = torch.sqrt(f2sum - fsum * fsum)
+        scaled = dcfg.symfac * fsymb / torch.clamp(fac, min=1e-12)
+        scaled = torch.clamp(torch.nan_to_num(scaled), -128.0, 127.0)
+        symbols = torch.floor(scaled + 128.0).to(torch.uint8)
+        y = symbols.float() - 128.0
+        rms = torch.sqrt((y * y).mean(dim=-1))                  # (C, J)
+        gate = (worth[:, None] & (sync2 > dcfg.minsync2)
+                & (rms > dcfg.minrms))
+        deint = symbols[..., self.state["perm"]]                # (C, J, 162)
+        return {"worth": worth, "freq": f1, "shift": shift1, "sync2": sync2,
+                "gate": gate, "deint": deint}
+
+    def prefano(self, ri: torch.Tensor) -> dict:
+        """(W, 2, fl) -> per-window candidate state, gates and deinterleaved
+        symbols: coarse search on every window, then refinement on the
+        valid lanes gathered across the batch (_compact_cand_pre,
+        jit_decoder.py:780-863). Valid lanes beyond cand_compact_lanes are
+        dropped weakest coarse SNR first and counted in refine_overflow."""
+        dcfg = self.config.demod
+        z_all = torch.complex(ri[:, 0], ri[:, 1])
+        coarse = self._coarse_stage(z_all)
+        W, C = coarse["valid"].shape
+        dev = z_all.device
+        J = dcfg.n_jiggles
+        ML = min(dcfg.cand_compact_lanes, W * C)
+        flat = {k: v.reshape((W * C,) + v.shape[2:]) for k, v in coarse.items()}
+        key = torch.where(flat["valid"], -flat["snr"], float("inf"))
+        sel = torch.argsort(key, stable=True)[:ML]
+        widx = torch.div(sel, C, rounding_mode="floor")
+        st = {k: v[sel] for k, v in flat.items()}
+        pdt = "bf16" if dcfg.probe_dtype == "bf16" else "c64"
+        head = self._refine_common(
+            st, probe=lambda center, reach, Wp, block: make_shared_probe_lanes(
+                z_all, widx, center, reach=reach, W=Wp, block=block,
+                dtype=pdt))
+
+        worthy = head["worth0"] & head["valid"]                 # (ML,)
+        ML2 = (min(dcfg.refine_max_lanes, ML) if dcfg.refine_max_lanes > 0
+               else ML)
+        sel2 = torch.argsort((~worthy).to(torch.int8), stable=True)[:ML2]
+        sub = {k: head[k][sel2]
+               for k in ("valid", "freq", "shift", "drift", "mode",
+                         "slm_params", "sync1", "Amat2", "base2")}
+        sub["worth0"] = worthy[sel2]
+        tail = self._prefano_tail(sub)
+        gsel = sel[sel2]             # global (W*C) indices of the tail lanes
+
+        def scat(base_flat, vals):
+            out = base_flat.clone()
+            out[gsel] = vals
+            return out.reshape((W, C) + vals.shape[1:])
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        # phase A/B results on every selected lane, the fine-grid updates
+        # of the tail lanes on top
+        freq = flat["freq"].clone()
+        freq[sel] = head["freq"]
+        shift = flat["shift"].clone()
+        shift[sel] = head["shift"]
+        drift = flat["drift"].clone()
+        drift[sel] = head["drift"]
+        kept = zeros(W * C, torch.bool)
+        kept[sel] = True
+        tailed = zeros(ML, torch.bool)
+        tailed[sel2] = True
+        worth_dropped = zeros(W * C, torch.bool)
+        worth_dropped[sel] = worthy & ~tailed
+        overflow = ((flat["valid"] & ~kept).reshape(W, C).sum(dim=1)
+                    + worth_dropped.reshape(W, C).sum(dim=1))
+        return {
+            "valid": coarse["valid"], "snr": coarse["snr"],
+            "mode": coarse["mode"], "slm_params": coarse["slm_params"],
+            "drift": drift.reshape(W, C),
+            "worth": scat(zeros(W * C, torch.bool), tail["worth"]),
+            "freq": scat(freq, tail["freq"]),
+            "shift": scat(shift, tail["shift"]),
+            "sync2": scat(zeros((W * C, J), torch.float32), tail["sync2"]),
+            "gate": scat(zeros((W * C, J), torch.bool), tail["gate"]),
+            "deint": scat(zeros((W * C, J, 162), torch.uint8), tail["deint"]),
+            "refine_overflow": overflow,
+        }
+
+    # -- Fano (jit_decoder.py:865-1022) -------------------------------------
+
+    def _compact_fano(self, gate_flat: torch.Tensor, deint_flat: torch.Tensor,
+                      cap: int):
+        """Every gated lane of the flat batch is decoded in fixed chunks of
+        FL = min(cap, N) lanes, gated first; the last chunk is clamped to
+        N - FL and re-decodes a few done lanes with identical results
+        (jit_decoder.py:865-926). Nothing runs when no lane is gated.
+        Returns (success (N,), data (N, 10))."""
+        dcfg = self.config.demod
+        dev = gate_flat.device
+        N = gate_flat.shape[0]
+        FL = min(cap, N)
+        sel_all = torch.argsort((~gate_flat).to(torch.int8), stable=True)
+        n_gated = int(gate_flat.sum())
+        succ = torch.zeros(N, dtype=torch.bool, device=dev)
+        data = torch.zeros((N, _NBYTES), dtype=torch.uint8, device=dev)
+        i = 0
+        while i * FL < n_gated:
+            start = min(i * FL, N - FL)
+            sel = sel_all[start:start + FL]
+            g = gate_flat[sel]
+            out = fano_decode_batch(deint_flat[sel], self.state["mettab"], g,
+                                    maxcycles=dcfg.maxcycles,
+                                    delta=dcfg.fano_delta)
+            succ[sel] = out["success"] & g
+            data[sel] = out["data"]
+            i += 1
+        return succ, data
+
+    def _fano_select_batch(self, pre: dict) -> dict:
+        """Two-phase Fano (jiggle 0 of every lane, then the other jiggles of
+        lanes phase 1 did not decode) and first success in jiggle order
+        (jit_decoder.py:928-1022)."""
+        dcfg = self.config.demod
+        gate = pre["gate"]
+        W, C, J = gate.shape
+        dev = gate.device
+        widx = torch.arange(W, device=dev)[:, None]
+        cidx = torch.arange(C, device=dev)[None, :]
+        deint = pre["deint"]
+        cap = dcfg.fano_compact_lanes
+
+        gate0 = gate[:, :, 0]
+        succ0f, data0f = self._compact_fano(
+            gate0.reshape(W * C), deint[:, :, 0].reshape(W * C, 162), cap)
+        succ0 = succ0f.reshape(W, C)
+        data0 = data0f.reshape(W, C, _NBYTES)
+        if J == 1:
+            any_success = succ0
+            jbest = torch.zeros((W, C), dtype=torch.int64, device=dev)
+            payload = data0[:, :, :7]
+        else:
+            R = C * (J - 1)
+            gate_rest = (gate[:, :, 1:] & ~succ0[:, :, None]).reshape(W * R)
+            succrf, datarf = self._compact_fano(
+                gate_rest, deint[:, :, 1:].reshape(W * R, 162), cap)
+            success = torch.cat([succ0[:, :, None],
+                                 succrf.reshape(W, C, J - 1)], dim=2)
+            data = torch.cat([data0[:, :, None],
+                              datarf.reshape(W, C, J - 1, _NBYTES)], dim=2)
+            any_success = success.any(dim=2)
+            jbest = torch.argmax(success.to(torch.int8), dim=2)  # first True
+            payload = data[widx, cidx, jbest][..., :7]
+        sync = pre["sync2"][widx, cidx, jbest]
+        return {
+            "success": any_success & pre["worth"], "payload": payload,
+            "freq": pre["freq"], "snr": pre["snr"], "sync": sync,
+            "shift": pre["shift"], "drift": pre["drift"],
+            "mode": pre["mode"], "slm_params": pre["slm_params"],
+            "jiggle": jbest, "valid": pre["valid"],
+            "fano_overflow": pre["refine_overflow"],
+            "fano_attempts": gate.sum(dim=(1, 2)),
+        }
+
+    # -- output packing (jit_decoder.py:178-230) ----------------------------
+
+    @staticmethod
+    def _pack(out: dict) -> torch.Tensor:
+        """Field dict -> one (W, C, 23) float32 tensor:
+        0 success 1 valid 2 freq 3 snr 4 sync 5 shift 6 drift 7 mode
+        8 jiggle 9:13 slm_params 13:20 payload 20 fano_overflow
+        21 fano_attempts 22 osd (always 0)."""
+        f32 = torch.float32
+        head = torch.stack([out[k].to(f32) for k in (
+            "success", "valid", "freq", "snr", "sync", "shift", "drift",
+            "mode", "jiggle")], dim=-1)                         # (W, C, 9)
+        lead = head.shape[:-1]
+
+        def percol(v):
+            return v.to(f32)[:, None, None].expand(lead + (1,))
+        return torch.cat([head, out["slm_params"].to(f32),
+                          out["payload"].to(f32),
+                          percol(out["fano_overflow"]),
+                          percol(out["fano_attempts"]),
+                          torch.zeros(lead + (1,), dtype=f32,
+                                      device=head.device)], dim=-1)
+
+    @staticmethod
+    def unpack_output(a) -> DeviceDecoderOutput:
+        """Packed (..., C, 23) float32 (tensor or array) -> typed output."""
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        a = np.asarray(a)
+        return DeviceDecoderOutput(
+            success=a[..., 0] > 0.5,
+            valid=a[..., 1] > 0.5,
+            freq=a[..., 2].astype(np.float32),
+            snr=a[..., 3].astype(np.float32),
+            sync=a[..., 4].astype(np.float32),
+            shift=a[..., 5].astype(np.int32),
+            drift=a[..., 6].astype(np.float32),
+            mode=a[..., 7].astype(np.int32),
+            jiggle=a[..., 8].astype(np.int32),
+            slm_params=a[..., 9:13].astype(np.float32),
+            payload=a[..., 13:20].astype(np.uint8),
+            fano_overflow=a[..., 0, 20].astype(np.int32),
+            fano_attempts=a[..., 0, 21].astype(np.int32),
+            osd=a[..., 22].astype(np.int32),
+        )
+
+    @staticmethod
+    def messages(out: DeviceDecoderOutput, hashtable=None) -> list[str]:
+        """Decoded message texts of one window's output."""
+        from uwspr_tpu.protocol.messages import unpack_message
+        msgs = []
+        for c in np.flatnonzero(out.success):
+            u = unpack_message(bytes(out.payload[c]), hashtable)
+            if u is not None:
+                msgs.append(u.text)
+        return msgs
+
+
+def _offsets_f32(step: float, device) -> torch.Tensor:
+    """(-2..2) * step in float32, as jnp.arange(-2, 3) * step."""
+    return torch.arange(-2, 3, dtype=torch.float32, device=device) \
+        * np.float32(step)
+
+
+__all__ = ["DeviceDecoder", "DeviceDecoderOutput", "check_slice"]

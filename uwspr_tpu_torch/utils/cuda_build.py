@@ -1,0 +1,130 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled by one nvcc call into a shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+
+The library lands in ``$UWSPR_TORCH_BUILD_DIR``, by default
+``build/uwspr_tpu_torch/`` at the repository root, and its name carries a
+digest of the sources, the flags and ``nvcc --version``, so an edited source
+or another toolkit is rebuilt at first use and an unchanged one is loaded as
+it is. There is no
+``--use_fast_math``: the selection kernel relies on IEEE division and
+compares. The first kernel call in a process builds and loads; nothing is
+built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = pathlib.Path(os.environ.get(
+    "UWSPR_TORCH_BUILD_DIR", PACKAGE_DIR.parent / "build" / "uwspr_tpu_torch"))
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_C = ctypes
+# C entry points of csrc/*.cu and their ctypes signatures. Every pointer and
+# the stream are c_void_p: a bare Python int would be passed as a 32-bit int.
+_SIGNATURES = {
+    "uwspr_select_best": [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
+                          _C.c_int, _C.c_float, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p],
+    "uwspr_fano_decode": [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
+                          _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p],
+}
+
+_lock = threading.Lock()
+_library: ctypes.CDLL | None = None
+# what the last build in this process did: library path, seconds, nvcc log
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH): the "
+            "CUDA kernels of uwspr_tpu_torch can only be built where the "
+            "CUDA toolkit is installed")
+    return found
+
+
+def kernel_sources() -> list[pathlib.Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest(nvcc: str) -> str:
+    version = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(version.encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> pathlib.Path:
+    """Compile csrc/*.cu unless a library of the same sources exists."""
+    nvcc = _nvcc()
+    lib = BUILD_DIR / f"libuwspr_tpu_torch_{_digest(nvcc)}.so"
+    if lib.exists():
+        build_info.update(library=str(lib), seconds=0.0, log="(cached)")
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in kernel_sources()]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    build_info.update(library=str(lib), seconds=seconds,
+                      log=proc.stdout + proc.stderr)
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built at first use and loaded once per process."""
+    global _library
+    with _lock:
+        if _library is None:
+            handle = ctypes.CDLL(str(build_library()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _library = handle
+        return _library
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_info",
+           "build_library", "check_launch", "kernel_sources",
+           "load_library"]
