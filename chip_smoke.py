@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch + CUDA port's serving decode path once on one CUDA card.
+"""Run the PyTorch + CUDA port's decode paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,8 +7,9 @@ Phases, each raising on failure (nothing is caught):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; exits non-zero when torch.cuda.is_available() is False;
-2. build: compiles uwspr_tpu_torch/csrc/*.cu with nvcc (and the JAX
-   package's native C++ Fano decoder with g++, as an oracle);
+2. build: compiles uwspr_tpu_torch/csrc/*.cu with one nvcc call, and the
+   JAX package's native C++ Fano decoder with g++ through the port's
+   loader (uwspr_tpu_torch/fec/host.py), into the port's build directory;
 3. selection kernel against its plain version: real-shaped
    (1664, 5, 26, 126) grids from the scene's coarse stage and from random
    data with NaNs and negatives, the adversarial cases of
@@ -18,15 +19,33 @@ Phases, each raising on failure (nothing is caught):
    all-timeout and inactive lanes, a lane count off the block size) and
    against the native C++ decoder at the full 10,000-cycle budget,
    including a block of 128 lanes that all time out; bit-exact;
-5. the slice: DeviceDecoder(with_serving_defaults(PipelineConfig(), 128),
-   device="cuda") on bench.py's scene (seed 0, 128 windows of
+5. probe kernel against its plain version at the host engine's shapes on
+   one scene window (C = 200 candidates of the scene's coarse search): the
+   (L=5, F=1) lag stage, the (L=1, F=5) freq stage and the 17-jiggle
+   soft-symbol call, with nonzero drift and edge lags -200 and 3400;
+   |corr| to rtol 2e-4 + atol 2e-2 (tests/test_probe_pallas.py), the
+   derived sync to 1e-5;
+6. STFT kernel against its plain version (matmul_bf16) on the 128-window
+   scene, full width and at the device decoder's 48-column window; each
+   window to 1e-5 of its peak power (bf16 x bf16 products are exact in
+   f32, so only the f32 summation order differs);
+7. the device slice: DeviceDecoder(with_serving_defaults(PipelineConfig(),
+   128), device="cuda") on bench.py's scene (seed 0, 128 windows of
    "VE3EMB FN25 30" at -18 dB): 128/128 decoded, 8 noise-only windows give
    no message, both kernels launched and neither plain version called,
    and a 2-window input agrees with the port's CPU run;
-6. timing: each kernel against its plain version at the slice's shapes
-   (the scene's selection grid and its phase-1 Fano chunk: 256 lanes at
-   maxcycles 10,000), with CUDA events, in turns plain, kernel, kernel,
-   plain; the two are also held equal on those inputs (bit-exact).
+8. the host slice: WindowDecoder(PipelineConfig(), device="cuda") at full
+   default width (maxfreqs 200, 17 jiggles, maxcycles 10,000, native Fano)
+   on the scene's first 16 windows: every window yields the spot, 4 noise
+   windows none, the probe and selection kernels launched and no plain
+   version called; fano_backend="jax" gives the same spots through the
+   Fano kernel; a 2-window input agrees with the port's CPU run;
+9. the device slice with stft_impl="pallas": 128/128 decoded with the STFT
+   kernel launched and its plain version never called; ms/window beside
+   the default configuration's, timed in turns;
+10. timing: each kernel against its plain version at the paths' shapes,
+   with CUDA events, in turns plain, kernel, kernel, plain; the two are
+   also held equal on those inputs.
 
 Prints a JSON line of per-kernel results before the last line, and as the
 last line {"ok": true, "device": {...}}.
@@ -34,9 +53,7 @@ last line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
-import hashlib
 import json
-import os
 import pathlib
 import subprocess
 import sys
@@ -46,8 +63,12 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_WINDOWS = 128
+N_HOST = 16             # scene windows through the host engine
 SNR_DB = -18.0
 EXPECTED = "VE3EMB FN25 30"
+PROBE_RTOL, PROBE_ATOL = 2e-4, 2e-2
+SYNC_ATOL = 1e-5
+STFT_RTOL = 1e-5        # of each window's peak power
 
 
 def log(msg: str) -> None:
@@ -57,6 +78,23 @@ def log(msg: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def reset_all_counters():
+    from uwspr_tpu_torch.fec import fano
+    from uwspr_tpu_torch.ops import probe, select, stft
+    for m in (fano, probe, select, stft):
+        m.reset_counters()
+
+
+def read_counters():
+    """(kernel launches, plain calls) of every kernel, by name."""
+    from uwspr_tpu_torch.fec import fano
+    from uwspr_tpu_torch.ops import probe, select, stft
+    mods = {"select_best": select, "fano_decode": fano,
+            "probe_powers": probe, "stft_power": stft}
+    return ({k: m.KERNEL_LAUNCHES for k, m in mods.items()},
+            {k: m.PLAIN_CALLS for k, m in mods.items()})
 
 
 # ---------------------------------------------------------------- phase 1
@@ -82,34 +120,8 @@ def phase_device():
 
 # ---------------------------------------------------------------- phase 2
 
-def build_native_oracle(build_dir: pathlib.Path):
-    """The JAX package's native C++ Fano decoder, compiled with g++ from the
-    checkout's fano_native.cc into the build directory and loaded (never a
-    library found beside the source, which may be built for another CPU)."""
-    import ctypes
-    src = ROOT / "uwspr_tpu" / "fec" / "native" / "fano_native.cc"
-    h = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = build_dir / f"libfano_native_oracle_{h}.so"
-    if not lib.exists():
-        build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ["g++", "-O3", "-fopenmp", "-shared", "-fPIC", str(src),
-               "-o", str(tmp)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    native = ctypes.CDLL(str(lib))
-    native.uwspr_fano_decode_batch.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    native.uwspr_fano_decode_batch.restype = None
-    return native
-
-
 def phase_build():
+    from uwspr_tpu_torch.fec.host import load_native_fano
     from uwspr_tpu_torch.utils import cuda_build
     t0 = time.perf_counter()
     cuda_build.load_library()
@@ -121,10 +133,9 @@ def phase_build():
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling" in line:
             log(f"[build] {line.strip()}")
-    native = build_native_oracle(cuda_build.BUILD_DIR)
-    log(f"[build] native Fano oracle built fresh from "
+    native = load_native_fano()
+    log(f"[build] native Fano decoder built from "
         f"uwspr_tpu/fec/native/fano_native.cc: {native._name}")
-    return native
 
 
 # ---------------------------------------------------------------- scene
@@ -225,21 +236,12 @@ def fano_lanes(rng, n, sigma, scale=50.0):
     return np.stack(out)
 
 
-def native_decode(native, symbols, maxcycles):
-    from uwspr_tpu.protocol.constants import FANO_METTAB
-    n = symbols.shape[0]
-    symbols = np.ascontiguousarray(symbols, np.uint8)
-    met = np.ascontiguousarray(FANO_METTAB, np.int32)
-    data = np.zeros((n, 10), np.uint8)
-    succ = np.zeros(n, np.int32)
-    metric = np.zeros(n, np.int32)
-    cycles = np.zeros(n, np.uint32)
-    maxnp = np.zeros(n, np.uint32)
-    native.uwspr_fano_decode_batch(
-        symbols.ctypes.data, n, 81, met.ctypes.data, 60, maxcycles,
-        data.ctypes.data, succ.ctypes.data, metric.ctypes.data,
-        cycles.ctypes.data, maxnp.ctypes.data)
-    return {"success": succ != 0, "data": data, "metric": metric,
+def native_decode(symbols, maxcycles):
+    """The native C++ decoder through the port's host Fano backend."""
+    from uwspr_tpu_torch.fec.host import fano_decode_batch_host
+    succ, data, metric, cycles, maxnp = fano_decode_batch_host(
+        symbols, backend="native", device="cpu", maxcycles=maxcycles)
+    return {"success": succ, "data": data, "metric": metric,
             "cycles": cycles.astype(np.int32),
             "maxnp": maxnp.astype(np.int32)}
 
@@ -258,7 +260,7 @@ def fano_equal(a: dict, b: dict, what: str) -> float:
     return err
 
 
-def phase_fano(native):
+def phase_fano():
     import torch
 
     from uwspr_tpu.protocol.constants import FANO_METTAB
@@ -300,7 +302,7 @@ def phase_fano(native):
                                maxcycles=10000)
     torch.cuda.synchronize()
     tk = time.perf_counter() - t0
-    n = native_decode(native, full, 10000)
+    n = native_decode(full, 10000)
     err = max(err, fano_equal(k, n, "kernel vs native maxcycles=10000"))
     timeouts = int((n["cycles"] == 810002).sum())
     require(timeouts >= 128, f"expected >= 128 timeout lanes, got {timeouts}")
@@ -312,13 +314,136 @@ def phase_fano(native):
 
 # ---------------------------------------------------------------- phase 5
 
+def probe_cases(hdec, ri):
+    """The host engine's probe calls on the scene's first window, at the
+    C = 200 candidates its coarse search gives: name -> (lags, freqs,
+    drift_sym, want_symbols) as CUDA tensors. Linear lanes get a random
+    nonzero drift; lanes 1 and 2 read the edge lags -200 and 3400."""
+    import torch
+
+    from uwspr_tpu_torch.demod.finesync import drift_offsets
+    from uwspr_tpu_torch.device import exact_f32
+    z = ri[0, 0] + 1j * ri[0, 1]
+    with torch.no_grad(), exact_f32():
+        cands = hdec.coarse(z)
+    C = len(cands.freq)
+    rng = np.random.default_rng(3)
+    drift = (cands.drift + rng.uniform(-1.5, 1.5, C)).astype(np.float32)
+    dsym = drift_offsets(cands, drift, float(hdec.config.coarse.cf))
+    shift = cands.shift.astype(np.int64)
+    f1 = cands.freq.astype(np.float32)
+    lag5 = shift[:, None] + np.arange(-128, 129, 64)[None, :]
+    lag5[1] = -200 + np.arange(-128, 129, 64)
+    lag5[2] = 3400 + np.arange(-128, 129, 64)
+    lag1 = shift[:, None].copy()
+    lag1[1, 0], lag1[2, 0] = -200, 3400
+    jig = hdec.fine.jiggle_offsets()
+    lag17 = shift[:, None] + jig[None, :]
+    lag17[1] = -200 + jig
+    lag17[2] = 3400 + jig
+    cases = {
+        "lag stage (L=5, F=1)": (lag5, f1[:, None], False),
+        "freq stage (L=1, F=5)": (
+            lag1, f1[:, None] + np.float32(0.25) * np.arange(-2, 3,
+                                                             dtype=np.float32),
+            False),
+        "soft symbols (L=17, F=1)": (lag17, f1[:, None], True),
+    }
+
+    def cu(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).cuda()
+    return {name: (cu(lags, np.int32), cu(freqs, np.float32),
+                   cu(dsym, np.float32), want)
+            for name, (lags, freqs, want) in cases.items()}
+
+
+def probe_error(pk, pp, what: str) -> float:
+    """Require |pk - pp| <= PROBE_ATOL + PROBE_RTOL * |pp| and the derived
+    sync to SYNC_ATOL; return max |pk - pp|."""
+    import torch
+
+    from uwspr_tpu_torch.demod.finesync import probe_constants, sync_of_powers
+    require(pk.shape == pp.shape, f"probe {what}: shape {tuple(pk.shape)}")
+    require(bool(torch.isfinite(pk).all()), f"probe {what}: non-finite")
+    d = (pk - pp).abs()
+    bad = d > PROBE_ATOL + PROBE_RTOL * pp.abs()
+    require(not bool(bad.any()), f"probe {what}: {int(bad.sum())} powers "
+            f"off, max |diff| {float(d.max()):.3g}")
+    sign = probe_constants(pk.device)["sign"]
+    ds = float((sync_of_powers(pk, sign) - sync_of_powers(pp, sign)).abs()
+               .max())
+    require(ds <= SYNC_ATOL, f"probe {what}: sync differs by {ds:.3g}")
+    return float(d.max())
+
+
+def phase_probe(hdec, ri):
+    import torch
+
+    from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.ops import probe
+    cases = probe_cases(hdec, ri)
+    z_ri = torch.from_numpy(np.ascontiguousarray(ri[0])).cuda()
+    err = 0.0
+    for name, (lags, freqs, dsym, _) in cases.items():
+        L = lags.shape[1]
+        with torch.no_grad(), exact_f32():
+            pk = probe.probe_powers(z_ri, lags, freqs, dsym, n_lags=L)
+            pp = probe.probe_powers_plain(z_ri, lags, freqs, dsym, n_lags=L)
+        torch.cuda.synchronize()
+        e = probe_error(pk, pp, name)
+        err = max(err, e)
+        log(f"[probe] {name} {tuple(pk.shape)}: kernel == plain within "
+            f"rtol {PROBE_RTOL} atol {PROBE_ATOL} (max |diff| {e:.3g}, "
+            f"max power {float(pp.max()):.4g}); sync within {SYNC_ATOL}")
+    return err, z_ri, cases
+
+
+# ---------------------------------------------------------------- phase 6
+
+def stft_error(pk, pp, what: str) -> float:
+    """Require every window's |pk - pp| <= STFT_RTOL * its peak power;
+    return max |pk - pp|."""
+    require(pk.shape == pp.shape, f"stft {what}: shape {tuple(pk.shape)}")
+    d = (pk - pp).abs()
+    peak = pp.amax(dim=(-2, -1), keepdim=True)
+    rel = float((d / peak).max())
+    require(rel <= STFT_RTOL, f"stft {what}: {rel:.3g} of the peak power")
+    return float(d.max())
+
+
+def phase_stft(dec, ri_c):
+    import torch
+
+    from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.ops import stft
+    cfg = dec.config.coarse
+    z = torch.complex(ri_c[:, 0], ri_c[:, 1])
+    kw = dict(n_ffts=cfg.n_ffts, size=cfg.fft_size, hop=cfg.spb // 2)
+    err = 0.0
+    inputs = {}
+    for name, col in (("full width", None), ("column window", dec._cols)):
+        consts = stft.stft_constants(cfg.fft_size, col, z.device)
+        with torch.no_grad(), exact_f32():
+            pk = stft.stft_power_core(z, impl="pallas", col_window=col,
+                                      consts=consts, **kw)
+            pp = stft.stft_power_core(z, impl="matmul_bf16", col_window=col,
+                                      consts=consts, **kw)
+        torch.cuda.synchronize()
+        e = stft_error(pk, pp, name)
+        err = max(err, e)
+        inputs[name] = (col, consts)
+        log(f"[stft] {name} {tuple(pk.shape)}: kernel == plain within "
+            f"{STFT_RTOL} of each window's peak power (max |diff| {e:.3g})")
+    return err, z, kw, inputs
+
+
+# ---------------------------------------------------------------- phase 7
+
 def phase_slice(card, dec, ri, ri_c):
     import torch
 
     from uwspr_tpu.config import (DemodConfig, PipelineConfig,
                                   with_serving_defaults)
-    from uwspr_tpu_torch.fec import fano
-    from uwspr_tpu_torch.ops import select as sel
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
 
     t0 = time.perf_counter()
@@ -328,20 +453,17 @@ def phase_slice(card, dec, ri, ri_c):
         f"{time.perf_counter() - t0:.3f} s")
     reps = 5
     torch.cuda.reset_peak_memory_stats()
-    sel.reset_counters()
-    fano.reset_counters()
+    reset_all_counters()
     t0 = time.perf_counter()
     for _ in range(reps):
         out = dec.decode_windows_ri(ri_c)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / reps
-    launches = {"select_best": sel.KERNEL_LAUNCHES,
-                "fano_decode": fano.KERNEL_LAUNCHES}
-    plain = {"select_best": sel.PLAIN_CALLS, "fano_decode": fano.PLAIN_CALLS}
+    launches, plain = read_counters()
     peak = torch.cuda.max_memory_allocated()
     log(f"[slice] launches during {reps} decodes: {launches}; plain calls: "
         f"{plain}")
-    require(all(v > 0 for v in launches.values()),
+    require(launches["select_best"] > 0 and launches["fano_decode"] > 0,
             f"a kernel of the path was not launched: {launches}")
     require(all(v == 0 for v in plain.values()),
             f"a plain version ran on the card path: {plain}")
@@ -393,7 +515,134 @@ def phase_slice(card, dec, ri, ri_c):
     return launches
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 8
+
+def spot_key(s):
+    return (s.message, s.candidate, s.jiggle, s.shift, s.mode)
+
+
+def phase_host_slice(card, hdec, ri):
+    import dataclasses
+
+    from uwspr_tpu.config import PipelineConfig
+    from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
+    zs = (ri[:N_HOST, 0] + 1j * ri[:N_HOST, 1]).astype(np.complex64)
+    t0 = time.perf_counter()
+    hdec(zs[0])
+    log(f"[host] warm-up decode of one window: "
+        f"{time.perf_counter() - t0:.3f} s")
+    reset_all_counters()
+    res, ms = [], []
+    for z in zs:
+        t0 = time.perf_counter()
+        res.append(hdec(z))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    dt = sum(ms) / N_HOST / 1e3
+    launches, plain = read_counters()
+    log(f"[host] launches during {N_HOST} decodes: {launches}; plain calls: "
+        f"{plain}")
+    require(launches["probe_powers"] > 0 and launches["select_best"] > 0,
+            f"a kernel of the host path was not launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"a plain version ran on the host path: {plain}")
+    ok = sum(EXPECTED in [s.message for s in r.spots] for r in res)
+    log(f"[host] {ok}/{N_HOST} windows decoded to '{EXPECTED}'")
+    require(ok == N_HOST, f"host engine: only {ok}/{N_HOST} decoded")
+    log(f"[host] {card}: {dt * 1e3:.3f} ms/window (WindowDecoder("
+        f"PipelineConfig()), mean of {N_HOST} after one warm-up; median "
+        f"{float(np.median(ms)):.3f}, p90 {float(np.percentile(ms, 90)):.3f})"
+        f"; stages "
+        f"{json.dumps(hdec.timers.summary())}")
+    noise = noise_windows(4)
+    nz = noise[:, 0] + 1j * noise[:, 1]
+    nspots = sum(len(hdec(z).spots) for z in nz)
+    require(nspots == 0, f"host engine: noise windows gave {nspots} spots")
+    log("[host] 4 noise-only windows: 0 spots")
+
+    jdec = WindowDecoder(dataclasses.replace(PipelineConfig(),
+                                             fano_backend="jax"),
+                         device="cuda")
+    reset_all_counters()
+    jres = [jdec(z) for z in zs]
+    jl, jp = read_counters()
+    require(jl["fano_decode"] > 0 and jp["fano_decode"] == 0,
+            f"fano_backend='jax': Fano kernel {jl}, plain {jp}")
+    for w, (a, b) in enumerate(zip(res, jres)):
+        require([(spot_key(s), s.payload) for s in a.spots]
+                == [(spot_key(s), s.payload) for s in b.spots],
+                f"host engine window {w}: native and jax Fano spots differ")
+    log(f"[host] fano_backend='jax': same spots in {N_HOST} windows, Fano "
+        f"kernel launched {jl['fano_decode']} times")
+
+    small = [zs[0], nz[0]]
+    cdec = WindowDecoder(PipelineConfig(), device="cpu")
+    dfreq = dsync = 0.0
+    for w, z in enumerate(small):
+        g, c = hdec(z), cdec(z)
+        for key in ("n_candidates", "n_worth_a_try", "n_fano_attempts"):
+            require(getattr(g, key) == getattr(c, key),
+                    f"host cuda vs cpu window {w}: {key} differs")
+        require([spot_key(s) for s in g.spots]
+                == [spot_key(s) for s in c.spots],
+                f"host cuda vs cpu window {w}: spots differ")
+        for a, b in zip(g.spots, c.spots):
+            dfreq = max(dfreq, abs(a.freq - b.freq))
+            dsync = max(dsync, abs(a.sync - b.sync))
+    require(dfreq <= 1e-3 and dsync <= 1e-4,
+            f"host cuda vs cpu: |dfreq| {dfreq:.3g}, |dsync| {dsync:.3g}")
+    log(f"[host] 2-window input, cuda vs the port's cpu run: counts, "
+        f"messages, candidate, jiggle, shift, mode equal; |dfreq| "
+        f"{dfreq:.3g} Hz, |dsync| {dsync:.3g}")
+    return launches, dt
+
+
+# ---------------------------------------------------------------- phase 9
+
+def phase_pallas_slice(card, dec, ri_c):
+    import torch
+
+    from uwspr_tpu.config import (CoarseConfig, PipelineConfig,
+                                  with_serving_defaults)
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    pdec = DeviceDecoder(with_serving_defaults(
+        PipelineConfig(coarse=CoarseConfig(stft_impl="pallas")), N_WINDOWS),
+        device="cuda")
+    pdec.decode_windows_ri(ri_c)
+    torch.cuda.synchronize()
+    reset_all_counters()
+    out = pdec.decode_windows_ri(ri_c)
+    torch.cuda.synchronize()
+    launches, plain = read_counters()
+    log(f"[pallas] launches in one decode: {launches}; plain calls: {plain}")
+    require(launches["stft_power"] > 0 and launches["select_best"] > 0
+            and launches["fano_decode"] > 0,
+            f"a kernel of the pallas-STFT path was not launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"a plain version ran on the pallas-STFT path: {plain}")
+    typed = pdec.unpack_output(out)
+    ok = sum(EXPECTED in pdec.messages(typed.window(w))
+             for w in range(N_WINDOWS))
+    log(f"[pallas] {ok}/{N_WINDOWS} windows decoded to '{EXPECTED}'")
+    require(ok == N_WINDOWS, f"pallas STFT: only {ok}/{N_WINDOWS} decoded")
+
+    reps = 3
+
+    def batch_ms(d):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            d.decode_windows_ri(ri_c)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps / N_WINDOWS
+    d1, p1, p2, d2 = (batch_ms(dec), batch_ms(pdec), batch_ms(pdec),
+                      batch_ms(dec))
+    log(f"[pallas] {card}: stft_impl='pallas' {(p1 + p2) / 2:.4f} ms/window,"
+        f" default (matmul_bf16) {(d1 + d2) / 2:.4f} ms/window (turns d/p/p/d"
+        f" {d1:.4f}, {p1:.4f}, {p2:.4f}, {d2:.4f}; {reps} batches of "
+        f"{N_WINDOWS} each)")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 10
 
 def time_pair(plain_fn, kernel_fn, n_plain, n_kernel):
     """Mean ms per call of each, CUDA events, turns plain/kernel/kernel/
@@ -460,35 +709,96 @@ def phase_timing(dec, ri_c, scene, card):
             {"select_best": sel_err, "fano_decode": fano_err})
 
 
+def phase_timing_probe_stft(card, z_ri, cases, z, kw, stft_inputs):
+    """The probe kernel on the 17-jiggle soft-symbol call and the STFT
+    kernel at the device decoder's column window (and full width), each
+    against its plain version."""
+    import torch
+
+    from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.ops import probe, stft
+    lags, freqs, dsym, _ = cases["soft symbols (L=17, F=1)"]
+    L = lags.shape[1]
+    with torch.no_grad(), exact_f32():
+        pk_ms, pp_ms, turns, (pp, pk) = time_pair(
+            lambda: probe.probe_powers_plain(z_ri, lags, freqs, dsym,
+                                             n_lags=L),
+            lambda: probe.probe_powers(z_ri, lags, freqs, dsym, n_lags=L),
+            5, 20)
+    probe_err = probe_error(pk, pp, "timing inputs")
+    log(f"[timing] {card}: probe_powers on the 17-jiggle call "
+        f"{tuple(pk.shape)}: kernel {pk_ms:.4f} ms, plain {pp_ms:.4f} ms "
+        f"(turns p/k/k/p {', '.join(f'{x:.4f}' for x in turns)})")
+    times = {"probe_powers": (pk_ms, pp_ms)}
+    stft_err = 0.0
+    for name in ("full width", "column window"):
+        col, consts = stft_inputs[name]
+
+        def run(impl):
+            return stft.stft_power_core(z, impl=impl, col_window=col,
+                                        consts=consts, **kw)
+        with torch.no_grad(), exact_f32():
+            sk, sp, turns, (spl, sker) = time_pair(
+                lambda: run("matmul_bf16"), lambda: run("pallas"), 10, 50)
+        stft_err = max(stft_err, stft_error(sker, spl, f"timing {name}"))
+        log(f"[timing] {card}: stft_power {name} {tuple(sker.shape)}: "
+            f"kernel {sk:.4f} ms, plain {sp:.4f} ms (turns p/k/k/p "
+            f"{', '.join(f'{x:.4f}' for x in turns)})")
+        times["stft_power"] = (sk, sp)      # the column window is kept
+    return times, {"probe_powers": probe_err, "stft_power": stft_err}
+
+
+def kernel_entry(name, source, replaces, launches, err, times):
+    return {"name": name, "route": "cuda",
+            "source": f"uwspr_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": times[0], "plain_ms": times[1]}
+
+
 def main() -> int:
     card = phase_device()
     sys.path.insert(0, str(ROOT))
-    native = phase_build()
+    phase_build()
     import torch
 
     from uwspr_tpu.config import PipelineConfig, with_serving_defaults
+    from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
     dec = DeviceDecoder(with_serving_defaults(PipelineConfig(), N_WINDOWS),
                         device="cuda")
+    hdec = WindowDecoder(PipelineConfig(), device="cuda")
     ri = make_windows(N_WINDOWS)
     ri_c = torch.from_numpy(ri).cuda()
     scene, sel_err = phase_select(dec, ri_c)
-    fano_err = phase_fano(native)
+    fano_err = phase_fano()
+    probe_err, z_ri, cases = phase_probe(hdec, ri)
+    stft_err, z, kw, stft_inputs = phase_stft(dec, ri_c)
     launches = phase_slice(card, dec, ri, ri_c)
+    host_launches, _ = phase_host_slice(card, hdec, ri)
+    pallas_launches = phase_pallas_slice(card, dec, ri_c)
     times, errs = phase_timing(dec, ri_c, scene, card)
-    sel_err = max(sel_err, errs["select_best"])
-    fano_err = max(fano_err, errs["fano_decode"])
+    times2, errs2 = phase_timing_probe_stft(card, z_ri, cases, z, kw,
+                                            stft_inputs)
+    times.update(times2)
     kernels = [
-        {"name": "select_best", "route": "cuda",
-         "source": "uwspr_tpu_torch/csrc/select_best.cu",
-         "replaces": "uwspr_tpu/ops/select_pallas.py:121",
-         "launches": launches["select_best"], "max_abs_err": sel_err,
-         "ms": times["select_best"][0], "plain_ms": times["select_best"][1]},
-        {"name": "fano_decode", "route": "cuda",
-         "source": "uwspr_tpu_torch/csrc/fano.cu",
-         "replaces": "uwspr_tpu/fec/fano_pallas.py:243",
-         "launches": launches["fano_decode"], "max_abs_err": fano_err,
-         "ms": times["fano_decode"][0], "plain_ms": times["fano_decode"][1]},
+        kernel_entry("select_best", "select_best.cu",
+                     "uwspr_tpu/ops/select_pallas.py:121",
+                     launches["select_best"],
+                     max(sel_err, errs["select_best"]), times["select_best"]),
+        kernel_entry("fano_decode", "fano.cu",
+                     "uwspr_tpu/fec/fano_pallas.py:243",
+                     launches["fano_decode"],
+                     max(fano_err, errs["fano_decode"]), times["fano_decode"]),
+        kernel_entry("probe_powers", "probe_powers.cu",
+                     "uwspr_tpu/ops/probe_pallas.py:123",
+                     host_launches["probe_powers"],
+                     max(probe_err, errs2["probe_powers"]),
+                     times["probe_powers"]),
+        kernel_entry("stft_power", "stft_power.cu",
+                     "uwspr_tpu/ops/stft_pallas.py:80",
+                     pallas_launches["stft_power"],
+                     max(stft_err, errs2["stft_power"]),
+                     times["stft_power"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """uwspr_tpu_torch coarse front against the JAX package: drift-model bank,
 STFT power, smoothed SNR spectrum, peak pick, SLM drift, the conv sync grid
-and the whole coarse stage.
+and the whole coarse stage; for the host engine the einsum sync grid, the
+host peak pick, ``CoarseSearch`` and the Pallas-STFT configuration.
 
 Inputs are made with numpy from a seed and go through both packages on the
 CPU. Tolerances, stated per comparison: the bank, peaks and integer fields
@@ -20,11 +21,13 @@ from uwspr_tpu.coarse import search as jsearch
 from uwspr_tpu.config import CoarseConfig, PipelineConfig
 from uwspr_tpu.io.channel import awgn
 from uwspr_tpu.models.slm import slm_frequency_drift_jnp
+from uwspr_tpu.ops.stft import stft_power as jax_stft_host
 from uwspr_tpu.ops.stft import stft_power_core as jax_stft
 from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
 from uwspr_tpu.protocol.modulate import synthesize_frame
 from uwspr_tpu_torch.coarse import search as tsearch
 from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
+from uwspr_tpu_torch.ops.stft import stft_power as torch_stft_host
 from uwspr_tpu_torch.ops.stft import stft_power_core as torch_stft
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
 
@@ -153,3 +156,119 @@ def test_coarse_stage_matches():
                                       err_msg=key)
     np.testing.assert_allclose(got["snr"].numpy(), np.asarray(ref["snr"]),
                                rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# host engine: einsum grid, peak pick, CoarseSearch, the Pallas STFT config
+# ---------------------------------------------------------------------------
+
+SCENES = np.stack([Z[0], _windows(1, seed=8)[0]])
+HOST_CFG = CoarseConfig(maxfreqs=13)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_einsum_grid_matches(dtype):
+    """The im2col einsum form at full 512-column width, as the host
+    CoarseSearch calls it: 162-term f32 sums in another order, rtol 1e-5."""
+    ps = np.array(jax_stft(jnp.asarray(Z), n_ffts=CFG.n_ffts,
+                           size=CFG.fft_size, hop=CFG.spb // 2))
+    bank = tsearch.build_drift_models(CFG)
+    sign = 2.0 * np.asarray(jsearch.SYNC_VECTOR, np.float32) - 1.0
+    if0 = np.array([[240, 245, 250, 0], [247, 252, 258, 270]], np.int32)
+    got = tsearch.coarse_score_grid(
+        torch.from_numpy(ps), torch.from_numpy(if0),
+        torch.from_numpy(bank.offsets), torch.from_numpy(sign),
+        impl="einsum", dtype=dtype).numpy()
+    for w in range(2):
+        ref = np.asarray(jsearch.coarse_score_grid(
+            jnp.asarray(ps[w]), jnp.asarray(if0[w]),
+            jnp.asarray(bank.offsets), jnp.asarray(sign), impl="einsum",
+            dtype=dtype))
+        assert got[w].shape == ref.shape == (4, 5, 26, len(bank.offsets))
+        np.testing.assert_allclose(got[w], ref, rtol=1e-5, atol=1e-6)
+
+
+def test_detect_peaks_exact():
+    """Same smoothed spectrum in, same peaks out; including a spectrum with
+    more peaks than maxfreqs and one tie in SNR (stable order)."""
+    rng = np.random.default_rng(12)
+    ps = np.asarray(jax_stft(jnp.asarray(SCENES), n_ffts=CFG.n_ffts,
+                             size=CFG.fft_size, hop=CFG.spb // 2))
+    sms = [np.asarray(jsearch.smoothed_snr_spectrum(
+        jnp.asarray(p), hpbm=CFG.hpbm, m=M_HALF)) for p in ps]
+    ragged = rng.uniform(0.1, 5.0, 2 * CFG.hpbm).astype(np.float32)
+    ragged[4] = ragged[10] = 9.0
+    ragged[3] = ragged[5] = ragged[9] = ragged[11] = 0.05
+    for sm in sms + [ragged]:
+        for cfg in (CFG, CoarseConfig(maxfreqs=4)):
+            for a, b in zip(tsearch.detect_peaks(sm, cfg),
+                            jsearch.detect_peaks(sm, cfg)):
+                assert a.dtype == b.dtype
+                np.testing.assert_array_equal(a, b)
+
+
+def _cands_equal(a, b):
+    assert a.n == b.n
+    for f in ("valid", "freq", "shift", "mode", "drift", "slm_params"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                      err_msg=f)
+    # 6 Hz SNR from f32 FFT power sums; the coarse sync from 162-term sums
+    np.testing.assert_allclose(a.snr, b.snr, rtol=1e-5)
+    np.testing.assert_allclose(a.sync, b.sync, rtol=1e-5)
+
+
+@pytest.mark.parametrize("w", [0, 1])
+def test_coarse_search_matches(w):
+    """Host CoarseSearch candidates of two scenes: fields exact, snr and
+    sync to 1e-5 relative."""
+    got = tsearch.CoarseSearch(HOST_CFG, device="cpu")(SCENES[w])
+    ref = jsearch.CoarseSearch(HOST_CFG)(SCENES[w])
+    assert got.n > 0
+    _cands_equal(got, ref)
+
+
+def test_host_stft_power_matches():
+    got = torch_stft_host(SCENES[0], n_ffts=CFG.n_ffts, size=CFG.fft_size,
+                          hop=CFG.spb // 2, device="cpu").numpy()
+    ref = np.asarray(jax_stft_host(SCENES[0], n_ffts=CFG.n_ffts,
+                                   size=CFG.fft_size, hop=CFG.spb // 2))
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-3 * ref.max())
+
+
+@pytest.mark.parametrize("col", [None, (CB0, CB1)])
+def test_pallas_stft_plain_matches_jax_kernel(col):
+    """impl="pallas" on a CPU tensor runs the matmul_bf16 plain version;
+    against the interpreted Pallas kernel: the same bf16 roundings and f32
+    sums in another order, so 1e-5 of each window's peak power."""
+    from uwspr_tpu.ops.stft_pallas import stft_power_pallas
+    from uwspr_tpu_torch.ops import stft as tstft
+    before = tstft.PLAIN_CALLS
+    got = torch_stft(torch.from_numpy(Z.astype(np.complex64)),
+                     n_ffts=CFG.n_ffts, size=CFG.fft_size,
+                     hop=CFG.spb // 2, impl="pallas", col_window=col).numpy()
+    assert tstft.PLAIN_CALLS == before + 1
+    for w in range(2):
+        ref = np.asarray(stft_power_pallas(jnp.asarray(Z[w]),
+                                           interpret=True))
+        if col is not None:
+            ref = ref[:, col[0]:col[1]]
+        assert got[w].shape == ref.shape
+        assert np.abs(got[w] - ref).max() <= 1e-5 * ref.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col", [None, (CB0, CB1)])
+def test_stft_kernel_matches_plain_on_card(col):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernel-against-plain check)")
+    from uwspr_tpu_torch.ops import stft as tstft
+    z = torch.from_numpy(Z.astype(np.complex64)).cuda()
+    kw = dict(n_ffts=CFG.n_ffts, size=CFG.fft_size, hop=CFG.spb // 2,
+              col_window=col)
+    before = tstft.KERNEL_LAUNCHES
+    pk = torch_stft(z, impl="pallas", **kw)
+    pp = torch_stft(z, impl="matmul_bf16", **kw)
+    torch.cuda.synchronize()
+    assert tstft.KERNEL_LAUNCHES == before + 1
+    peak = pp.amax(dim=(-2, -1), keepdim=True)
+    assert float(((pk - pp).abs() / peak).max()) <= 1e-5

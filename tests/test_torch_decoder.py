@@ -121,8 +121,8 @@ def test_pack_roundtrip(port_run):
 
 
 @pytest.mark.parametrize("what", ["no_cand_compaction", "no_fano_compaction",
-                                  "wideband", "einsum_grid", "pallas_stft",
-                                  "osd", "host_fano", "truncate"])
+                                  "wideband", "einsum_grid", "osd",
+                                  "host_fano", "truncate"])
 def test_outside_slice_raises(what):
     cfg, kw = CFG, {}
     d, c = CFG.demod, CFG.coarse
@@ -136,8 +136,6 @@ def test_outside_slice_raises(what):
             PipelineConfig(coarse=CoarseConfig(halfbandwidth=187)), 2)
     elif what == "einsum_grid":
         cfg = dc.replace(CFG, coarse=dc.replace(c, grid_impl="einsum"))
-    elif what == "pallas_stft":
-        cfg = dc.replace(CFG, coarse=dc.replace(c, stft_impl="pallas"))
     elif what == "osd":
         cfg = dc.replace(CFG, demod=dc.replace(d, osd_depth=2))
     elif what == "host_fano":
@@ -146,6 +144,32 @@ def test_outside_slice_raises(what):
         kw = {"truncate_stage": "post_fano"}
     with pytest.raises(NotImplementedError):
         DeviceDecoder(cfg, device="cpu", **kw)
+
+
+def test_pallas_stft_slice_matches_jax(jax_run, port_run):
+    """stft_impl="pallas": the port's DeviceDecoder on the CPU (the STFT's
+    plain version, matmul_bf16) against the JAX decoder with that config
+    (its Pallas kernel in interpret mode): same messages, valid, success
+    and fano_attempts; the packed output equals the port's default run,
+    whose STFT has the same numerics."""
+    import dataclasses as dc
+
+    from uwspr_tpu_torch.ops import stft
+    cfg = dc.replace(CFG, coarse=dc.replace(CFG.coarse, stft_impl="pallas"))
+    jdec = JaxDecoder(cfg)
+    j = jdec.unpack_output(np.asarray(jdec.decode_windows_ri(RI)))
+    before = stft.PLAIN_CALLS
+    tdec = DeviceDecoder(cfg, device="cpu")
+    ta = tdec.decode_windows_ri(torch.from_numpy(RI)).numpy()
+    assert stft.PLAIN_CALLS == before + 1
+    t = tdec.unpack_output(ta)
+    for w in range(2):
+        assert tdec.messages(t.window(w)) == jdec.messages(j.window(w))
+    assert tdec.messages(t.window(0)) == ["VE3EMB FN25 30"]
+    for key in ("valid", "success", "fano_attempts"):
+        np.testing.assert_array_equal(getattr(t, key), getattr(j, key),
+                                      err_msg=key)
+    np.testing.assert_array_equal(ta, port_run[1])
 
 
 def test_cuda_request_without_card_raises():
@@ -169,6 +193,13 @@ cfg = with_serving_defaults(PipelineConfig(demod=DemodConfig(maxcycles=200)), 2)
 dec = DeviceDecoder(cfg, device="cpu")
 out = dec.unpack_output(dec.decode_windows_ri(torch.from_numpy(ri)))
 print(dec.messages(out.window(0)))
+from uwspr_tpu.config import CoarseConfig
+from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
+z = ri[0, 0] + 1j * ri[0, 1]
+host = WindowDecoder(PipelineConfig(coarse=CoarseConfig(maxfreqs=13),
+                                    demod=DemodConfig(maxcycles=300)),
+                     device="cpu")
+print("host", [s.message for s in host(z).spots])
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 print("NO_JAX_OK")
 """
@@ -183,3 +214,4 @@ def test_port_never_imports_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "NO_JAX_OK" in proc.stdout
     assert "VE3EMB FN25 30" in proc.stdout
+    assert "host ['VE3EMB FN25 30']" in proc.stdout

@@ -1,13 +1,15 @@
-"""Coarse candidate search (torch): drift-model bank, smoothed SNR spectrum
-and the dense (freq x lag x model) sync grid.
+"""Coarse candidate search (torch): drift-model bank, smoothed SNR spectrum,
+peak pick, the dense (freq x lag x model) sync grid and the host engine's
+``CoarseSearch``.
 
-Counterpart of uwspr_tpu/coarse/search.py. ``build_drift_models`` and
-``max_peaks`` are numpy; they are carried over because their JAX module
-imports jax. The sync grid is the ``conv`` form of ``coarse_score_grid``
-(search.py:259-294, the narrowband device path): one dilated 2-D
-correlation per A/B powersum plane. The wideband im2col ``einsum`` form is
-not ported yet. The drift-model selection lives in ``uwspr_tpu_torch.ops.
-select`` (the CUDA kernel and its plain version).
+Counterpart of uwspr_tpu/coarse/search.py. ``build_drift_models``,
+``max_peaks``, ``Candidates`` and ``detect_peaks`` are numpy; they are
+carried over because their JAX module imports jax. The sync grid has both
+forms of ``coarse_score_grid``: ``conv`` (search.py:259-294, the narrowband
+device path), one dilated 2-D correlation per A/B powersum plane, and the
+f32 im2col ``einsum`` (search.py:295-339) that the host ``CoarseSearch``
+uses. The drift-model selection lives in ``uwspr_tpu_torch.ops.select``
+(the CUDA kernel and its plain version).
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ import torch.nn.functional as F
 
 from uwspr_tpu.config import CoarseConfig
 from uwspr_tpu.models import slm
+from uwspr_tpu.protocol.constants import SYNC_VECTOR
+from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.ops.select import select_best
+from uwspr_tpu_torch.ops.stft import stft_constants, stft_power
 
 MODE_LINEAR = 0
 MODE_NONLINEAR = 1
@@ -78,6 +84,49 @@ def max_peaks(cfg: CoarseConfig) -> int:
     return min(cfg.maxfreqs, (2 * cfg.hpbm - 1) // 2)
 
 
+@dataclass
+class Candidates:
+    """Padded candidate batch (maxfreqs lanes + validity mask),
+    search.py:122-137."""
+
+    valid: np.ndarray        # (C,) bool
+    freq: np.ndarray         # (C,) float32  baseband Hz (tuned)
+    snr: np.ndarray          # (C,) float32  6 Hz SNR, dB
+    sync: np.ndarray         # (C,) float32  coarse sync score
+    shift: np.ndarray        # (C,) int32    time offset, samples (128*k0)
+    mode: np.ndarray         # (C,) int32    MODE_LINEAR / MODE_NONLINEAR
+    drift: np.ndarray        # (C,) float32  linear drift (symbols/frame)
+    slm_params: np.ndarray   # (C, 4) float32 (V1, V2, p1, p2)
+
+    @property
+    def n(self) -> int:
+        return int(self.valid.sum())
+
+
+def detect_peaks(smspec: np.ndarray, cfg: CoarseConfig
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host peak pick (search.py:174-198): (valid (C,), absolute bin if0
+    (C,), snr_db (C,)). Strict local maxima in ascending frequency capped
+    at maxfreqs, then stably sorted by SNR descending."""
+    finpb = 2 * cfg.hpbm
+    C = cfg.maxfreqs
+    s = np.asarray(smspec)
+    j = np.arange(1, finpb - 1)
+    is_peak = (s[j] > s[j - 1]) & (s[j] > s[j + 1])
+    peaks = j[is_peak][:C]
+    snr = 10.0 * np.log10(s[peaks])
+    order = np.argsort(-snr, kind="stable")
+    peaks, snr = peaks[order], snr[order]
+    valid = np.zeros(C, dtype=bool)
+    if0 = np.zeros(C, dtype=np.int32)
+    out_snr = np.zeros(C, dtype=np.float32)
+    npk = len(peaks)
+    valid[:npk] = True
+    if0[:npk] = peaks - cfg.hpbm + cfg.fft_size // 2
+    out_snr[:npk] = snr
+    return valid, if0, out_snr
+
+
 def smoothed_snr_spectrum(ps: torch.Tensor, *, hpbm: int, m: int,
                           col0: int = 0) -> torch.Tensor:
     """(..., n, ncols) power -> (..., 2*hpbm) SNR-normalized smooth spectrum
@@ -118,41 +167,126 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
     offsets: (M, 162) int bin offsets; sync_sign: (162,) +/-1.
     Returns sync (B, C, 5, n_lags, M) float32 = ss / pow.
 
-    ss[b, m, w, f] = sum_k sign[k] * A[b, w + 2k, f + offs[m, k]], evaluated
-    as one correlation with row dilation 2 (the half-symbol lag stride) per
-    plane, as search.py:259-294 does with conv_general_dilated. The conv
-    runs under ``exact_f32`` on the card (no TF32). ``dtype="bf16"`` rounds
-    the A/B planes to bf16 (the one-hot +-1/0 kernels are exact) and still
-    accumulates in f32. ``f_window=(lo, hi)`` scores only columns [lo, hi)."""
-    if impl != "conv":
-        raise NotImplementedError(
-            f"coarse grid impl {impl!r} is not ported (only 'conv')")
+    ss[b, m, w, f] = sum_k sign[k] * A[b, w + 2k, f + offs[m, k]]. Two
+    forms, equal up to f32 summation order (search.py:220-238):
+
+    - ``impl="conv"``: one correlation with row dilation 2 (the half-symbol
+      lag stride) per plane, as search.py:259-294 does with
+      conv_general_dilated;
+    - ``impl="einsum"``: the im2col gather XA[b, w, k, d, f] = A[b, w + 2k,
+      f + d] contracted against the one-hot (symbol, shift) weights
+      (search.py:295-339), the host CoarseSearch's form.
+
+    Both run under ``exact_f32`` on the card (no TF32). ``dtype="bf16"``
+    rounds the A/B planes to bf16 (the one-hot +-1/0 weights are exact) and
+    still accumulates in f32. ``f_window=(lo, hi)`` scores only columns
+    [lo, hi). Candidate columns if0 + (-2..2) index like numpy, so a padded
+    lane at bin 0 wraps to the top columns as in the JAX code."""
+    if impl not in ("conv", "einsum"):
+        raise ValueError(f"coarse grid impl {impl!r}")
     size = ps.shape[-1]
     A, B = powersum_planes(ps)
     lo, hi = 0, size
     if f_window is not None:
         lo, hi = max(f_window[0], 0), min(f_window[1], size)
         A, B = A[..., lo:hi], B[..., lo:hi]
-    onehot = F.one_hot((offsets - _D_MIN).long(), _N_SHIFTS).float()
-    K_ss = (onehot * sync_sign.float()[None, :, None])[:, None]  # (M,1,162,D)
-    K_pw = onehot[:, None]
-    Ax = F.pad(A, (_D_MAX, -_D_MIN))[:, None]                  # (B,1,n,w+12)
-    Bx = F.pad(B, (_D_MAX, -_D_MIN))[:, None]
     if dtype == "bf16":
-        Ax = Ax.to(torch.bfloat16).float()
-        Bx = Bx.to(torch.bfloat16).float()
+        A = A.to(torch.bfloat16).float()
+        B = B.to(torch.bfloat16).float()
     elif dtype != "f32":
         raise ValueError(f"grid dtype {dtype!r}")
-    ss = F.conv2d(Ax, K_ss, dilation=(2, 1))[:, :, :n_lags]   # (B,M,w,f)
-    pw = F.conv2d(Bx, K_pw, dilation=(2, 1))[:, :, :n_lags]
-    # per-candidate frequency gather ifr = if0 + (-2..2), conv-window relative
+    onehot = F.one_hot((offsets - _D_MIN).long(), _N_SHIFTS).float()
+    W_ss = onehot * sync_sign.float()[None, :, None]            # (M,162,D)
+    # per-candidate frequency gather ifr = if0 + (-2..2), window relative
     ifr = (if0[..., None] + torch.arange(-2, 3, device=ps.device) - lo).long()
     bidx = torch.arange(ps.shape[0], device=ps.device)[:, None, None]
-    ss_c = ss[bidx, :, :, ifr]                                 # (B,C,5,M,w)
-    pw_c = pw[bidx, :, :, ifr]
-    return (ss_c / pw_c).transpose(-1, -2).float()             # (B,C,5,w,M)
+    if impl == "conv":
+        Ax = F.pad(A, (_D_MAX, -_D_MIN))[:, None]              # (B,1,n,w+12)
+        Bx = F.pad(B, (_D_MAX, -_D_MIN))[:, None]
+        ss = F.conv2d(Ax, W_ss[:, None], dilation=(2, 1))[:, :, :n_lags]
+        pw = F.conv2d(Bx, onehot[:, None], dilation=(2, 1))[:, :, :n_lags]
+        ss_c = ss[bidx, :, :, ifr]                             # (B,C,5,M,w)
+        pw_c = pw[bidx, :, :, ifr]
+        return (ss_c / pw_c).transpose(-1, -2).float()         # (B,C,5,w,M)
+    n = ps.shape[-2]
+    if n < 2 * 162 + n_lags - 2:
+        raise ValueError(f"{n} spectrum rows are too few for {n_lags} lags")
+    width = A.shape[-1]
+
+    def im2col(X):                  # (B, n, w) -> (B, lags, 162, D, w)
+        pad = F.pad(X, (_N_SHIFTS, _N_SHIFTS))
+        off0 = _D_MIN + _N_SHIFTS
+        S = torch.stack([pad[..., d + off0:d + off0 + width]
+                         for d in range(_N_SHIFTS)], dim=-2)   # (B,n,D,w)
+        return torch.stack([S[:, k0:k0 + 2 * 162:2] for k0 in range(n_lags)],
+                           dim=1)
+    ss = torch.einsum("mkd,bwkdf->bwmf", W_ss, im2col(A))      # (B,w,M,f)
+    pw = torch.einsum("mkd,bwkdf->bwmf", onehot, im2col(B))
+    return (ss[bidx, :, :, ifr] / pw[bidx, :, :, ifr]).float()  # (B,C,5,w,M)
 
 
-__all__ = ["DriftModelBank", "MODE_LINEAR", "MODE_NONLINEAR",
-           "build_drift_models", "coarse_score_grid", "max_peaks",
-           "powersum_planes", "smoothed_snr_spectrum"]
+class CoarseSearch:
+    """The host engine's coarse search over one 45000-sample window
+    (search.py:607-652) on ``device``: FFT STFT power, smoothed SNR
+    spectrum, host peak pick, the f32 einsum sync grid over all maxfreqs
+    lanes and the exact selection (the CUDA kernel on the card). ``models``
+    is the drift-model bank, by default built from ``cfg``."""
+
+    def __init__(self, cfg: CoarseConfig | None = None, *,
+                 device: str | torch.device,
+                 models: DriftModelBank | None = None):
+        self.cfg = cfg or CoarseConfig()
+        if self.cfg.halfbandwidth > self.cfg.fs // 2:
+            raise ValueError("halfbandwidth must be below fs/2")
+        self.device = resolve_device(device)
+        self.models = models if models is not None \
+            else build_drift_models(self.cfg)
+        sign = 2.0 * SYNC_VECTOR.astype(np.float32) - 1.0
+        # constants moved to the device once per search object
+        self._offsets = torch.from_numpy(self.models.offsets).to(self.device)
+        self._is_nl = torch.from_numpy(self.models.is_nonlinear).to(
+            self.device)
+        self._sign = torch.from_numpy(sign).to(self.device)
+        self._stft = stft_constants(self.cfg.fft_size, None, self.device)
+
+    def power_spectrum(self, z: np.ndarray) -> torch.Tensor:
+        cfg = self.cfg
+        return stft_power(z, n_ffts=cfg.n_ffts, size=cfg.fft_size,
+                          hop=cfg.spb // 2, device=self.device,
+                          consts=self._stft)
+
+    def __call__(self, z: np.ndarray) -> Candidates:
+        """One window -> candidate batch."""
+        cfg = self.cfg
+        ps = self.power_spectrum(z)
+        sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=cfg.fft_size // 2)
+        valid, if0, snr = detect_peaks(sm.cpu().numpy(), cfg)
+        sync = coarse_score_grid(
+            ps[None], torch.from_numpy(if0)[None].to(self.device),
+            self._offsets, self._sign, impl="einsum")[0]
+        best, best_idx = select_best(sync, self._is_nl,
+                                     threshold=float(cfg.threshold))
+        best = best.cpu().numpy()
+        best_idx = best_idx.cpu().numpy()
+        Mdim = self.models.offsets.shape[0]
+        fi = best_idx // (26 * Mdim)
+        k0 = (best_idx // Mdim) % 26
+        mm = best_idx % Mdim
+        freq = (if0 + (fi - 2) - cfg.fft_size // 2) * cfg.df
+        return Candidates(
+            valid=valid,
+            freq=freq.astype(np.float32),
+            snr=snr,
+            sync=best.astype(np.float32),
+            shift=(128 * k0).astype(np.int32),
+            mode=np.where(self.models.is_nonlinear[mm], MODE_NONLINEAR,
+                          MODE_LINEAR).astype(np.int32),
+            drift=self.models.drift[mm],
+            slm_params=self.models.slm_params[mm],
+        )
+
+
+__all__ = ["Candidates", "CoarseSearch", "DriftModelBank", "MODE_LINEAR",
+           "MODE_NONLINEAR", "build_drift_models", "coarse_score_grid",
+           "detect_peaks", "max_peaks", "powersum_planes",
+           "smoothed_snr_spectrum"]

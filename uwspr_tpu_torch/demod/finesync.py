@@ -1,7 +1,17 @@
-"""Shared-window probe evaluation for fine sync and soft symbols (torch).
+"""Fine sync and soft symbols (torch): the host engine's staged refinement
+and the device engine's shared-window probe evaluation.
 
-Counterpart of the device functions of uwspr_tpu/demod/finesync.py
-(:56-65, :206-459): one aligned window per candidate lane is gathered once
+Host engine (uwspr_tpu/demod/finesync.py:68-85, :462-649): ``FineSync``
+refines each candidate's (lag, freq, drift) stage by stage and extracts the
+soft symbols of every jiggled lag. Each stage's probe powers come from
+``ops/probe.py`` (the CUDA kernel on the card) through
+``eval_probe_grid_core``; the argmaxes, the drift update and the soft-symbol
+scaling stay in numpy, as the JAX engine has them, so only the probe powers
+can differ between the packages. The window moves to the device once per
+``refine`` / ``soft_symbols`` call.
+
+Device engine (uwspr_tpu/demod/finesync.py:56-65, :206-459): one aligned
+window per candidate lane is gathered once
 (``make_shared_probe`` / ``make_shared_probe_lanes``), derotated by the
 lane's per-symbol drift (``probe_derotate``), and every (freq, lag) probe
 of a stage is a masked tone-bank product against it
@@ -18,16 +28,22 @@ bf16 operands and multiplying in f32 with TF32 off.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from uwspr_tpu.config import CoarseConfig, DemodConfig
+from uwspr_tpu.models import slm
 from uwspr_tpu.protocol.constants import (
     SAMPLE_RATE,
     SYNC_VECTOR,
     TONE_OFFSETS,
     TONE_SPACING,
 )
+from uwspr_tpu_torch.coarse.search import MODE_NONLINEAR, Candidates
+from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.ops.probe import probe_powers
 
 _DT = 1.0 / SAMPLE_RATE
 _TONES_HZ = (TONE_OFFSETS * TONE_SPACING).astype(np.float32)  # (4,)
@@ -214,16 +230,228 @@ def shared_probe_eval(zd: torch.Tensor, base: torch.Tensor,
     else:
         raise ValueError(f"probe dtype {dtype!r}")
     p = p.reshape(C, n_lags, 162, F_, 4).permute(0, 3, 1, 2, 4)  # (C,F,L,162,4)
-    sign = consts["sign"]
-    cmet = (p[..., 1] + p[..., 3]) - (p[..., 0] + p[..., 2])
-    ss = torch.einsum("cfli,i->cfl", cmet, sign)
-    totp = p.sum(dim=(-2, -1))
-    sync = (ss / totp).float()
+    sync = sync_of_powers(p, consts["sign"])
     if want_symbols:
         return sync, p
     return sync
 
 
-__all__ = ["jiggle_offsets", "make_shared_probe", "make_shared_probe_lanes",
-           "phasor_ramp", "probe_constants", "probe_derotate",
-           "shared_probe_eval"]
+def sync_of_powers(p: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
+    """Tone powers (C, F, L, 162, 4) -> sync (C, F, L): the sync-tone
+    correlation over the total power (finesync.py:488-492)."""
+    cmet = (p[..., 1] + p[..., 3]) - (p[..., 0] + p[..., 2])
+    ss = torch.einsum("cfli,i->cfl", cmet, sign)
+    totp = p.sum(dim=(-2, -1))
+    return (ss / totp).float()
+
+
+# ---------------------------------------------------------------------------
+# host engine (finesync.py:68-85, :462-649)
+# ---------------------------------------------------------------------------
+
+def drift_offsets(cands: Candidates, drift1: np.ndarray, cf: float
+                  ) -> np.ndarray:
+    """(C, 162) per-symbol frequency offset in Hz for each candidate
+    (finesync.py:68-85): linear (drift1/2) * (i-81)/81, nonlinear the SLM
+    drift at t = i*111//162 whole seconds."""
+    i = np.arange(162, dtype=np.float64)
+    lin = (drift1[:, None] / 2.0) * (i[None, :] - 81.0) / 81.0
+    t = (np.arange(162) * 111 // 162).astype(np.float64)
+    v1, v2, p1, p2 = (cands.slm_params[:, k:k + 1].astype(np.float64)
+                      for k in range(4))
+    nl = slm.slm_frequency_drift(v1, v2, p1, p2, cf, t[None, :])
+    is_nl = (cands.mode == MODE_NONLINEAR)[:, None]
+    return np.where(is_nl, nl, lin).astype(np.float32)
+
+
+def complex_to_ri(z: np.ndarray) -> np.ndarray:
+    """(N,) complex -> (2, N) float32 real/imag planes (finesync.py:506)."""
+    z = np.asarray(z)
+    return np.stack([z.real.astype(np.float32), z.imag.astype(np.float32)])
+
+
+def eval_probe_grid_core(z_ri: torch.Tensor, lags: torch.Tensor,
+                         freqs: torch.Tensor, drift_sym: torch.Tensor, *,
+                         n_lags: int, want_symbols: bool = False,
+                         consts: dict[str, torch.Tensor] | None = None):
+    """Sync (C, F, L) [+ tone powers p (C, F, L, 162, 4)] for every
+    (candidate, freq, lag) probe (finesync.py:462-495). z_ri is the (2, N)
+    float32 window; the powers come from ``ops.probe.probe_powers``.
+    ``consts`` are probe_constants(z_ri.device), built here if not given."""
+    if consts is None:
+        consts = probe_constants(z_ri.device)
+    p = probe_powers(z_ri, lags, freqs, drift_sym, n_lags=n_lags)
+    sync = sync_of_powers(p, consts["sign"])
+    if want_symbols:
+        return sync, p
+    return sync
+
+
+def eval_probe_grid(z, lags, freqs, drift_sym, *, n_lags: int,
+                    want_symbols: bool = False,
+                    consts: dict[str, torch.Tensor] | None = None):
+    """Host entry (finesync.py:513-520): z as numpy complex samples or a
+    (2, N) float pair (run on the CPU), or a (2, N) float32 tensor (run on
+    its device); lags, freqs and drift_sym as numpy. Returns numpy
+    sync [, p]."""
+    if isinstance(z, torch.Tensor):
+        z_ri = z
+    else:
+        ri = z if (isinstance(z, np.ndarray) and z.ndim == 2) \
+            else complex_to_ri(z)
+        z_ri = torch.from_numpy(np.ascontiguousarray(ri, np.float32))
+    dev = z_ri.device
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+    out = eval_probe_grid_core(z_ri, put(lags, np.int32),
+                               put(freqs, np.float32),
+                               put(drift_sym, np.float32), n_lags=n_lags,
+                               want_symbols=want_symbols, consts=consts)
+    if want_symbols:
+        return out[0].cpu().numpy(), out[1].cpu().numpy()
+    return out.cpu().numpy()
+
+
+def _first_argmax(sync: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(C, F, L) -> best (fi, li) per candidate, first-max-wins in C order."""
+    C, F_, L = sync.shape
+    idx = sync.reshape(C, -1).argmax(axis=1)
+    return idx // L, idx % L
+
+
+@dataclass
+class Refined:
+    """Per-candidate state after the staged refinement."""
+
+    freq: np.ndarray          # (C,) f1
+    shift: np.ndarray         # (C,) shift1
+    drift: np.ndarray         # (C,) drift1
+    sync: np.ndarray          # (C,) sync1
+    worth_a_try: np.ndarray   # (C,) bool
+
+
+class FineSync:
+    """Staged refinement and soft symbols on ``device`` (finesync.py:542).
+    ``jiggles`` are the retry lag offsets, by default jiggle_offsets of the
+    demod config."""
+
+    def __init__(self, demod_cfg: DemodConfig | None = None,
+                 coarse_cfg: CoarseConfig | None = None, *,
+                 device: str | torch.device,
+                 jiggles: np.ndarray | None = None):
+        self.cfg = demod_cfg or DemodConfig()
+        self.coarse = coarse_cfg or CoarseConfig()
+        self.device = resolve_device(device)
+        self._jiggles = (jiggle_offsets(self.cfg.n_jiggles, self.cfg.iifac)
+                         if jiggles is None
+                         else np.asarray(jiggles).astype(np.int32))
+        self._consts = probe_constants(self.device)
+
+    def _window(self, z: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(complex_to_ri(z)).to(self.device)
+
+    def _stage(self, z_ri, lag_grid, freq_grid, dsym, want_symbols=False):
+        return eval_probe_grid(z_ri, lag_grid, freq_grid, dsym,
+                               n_lags=lag_grid.shape[1],
+                               want_symbols=want_symbols,
+                               consts=self._consts)
+
+    # -- staged refinement (reference impl.cc:389-456) ---------------------
+
+    def refine(self, z: np.ndarray, cands: Candidates) -> Refined:
+        """finesync.py:550-617, stage for stage."""
+        zj = self._window(z)
+        C = len(cands.freq)
+        cidx = np.arange(C)
+        f1 = cands.freq.astype(np.float32).copy()
+        shift1 = cands.shift.astype(np.int32).copy()
+        drift1 = cands.drift.astype(np.float32).copy()
+        cf = float(self.coarse.cf)
+        dsym = drift_offsets(cands, drift1, cf)
+
+        # stage 0: coarse lag search, +/-128 step 64
+        lag_grid = shift1[:, None] + np.arange(-128, 129, 64)[None, :]
+        sync = self._stage(zj, lag_grid, f1[:, None], dsym)
+        fi, li = _first_argmax(sync)
+        shift1 = lag_grid[cidx, li].astype(np.int32)
+        sync1 = sync[cidx, 0, li]
+
+        # stage 1: coarse freq search, +/-2 * 0.25 Hz
+        freq_grid = (f1[:, None] + (np.arange(-2, 3) * 0.25)[None, :]
+                     ).astype(np.float32)
+        sync = self._stage(zj, shift1[:, None], freq_grid, dsym)
+        fi, li = _first_argmax(sync)
+        f1 = freq_grid[cidx, fi].astype(np.float32)
+        sync1 = sync[cidx, fi, 0]
+
+        # stage 2 (linear only): drift +/- 0.5, applied as if/else-if
+        # against the base sync (impl.cc:423-441)
+        is_lin = cands.mode != MODE_NONLINEAR
+        driftp = drift1 + np.float32(0.5)
+        driftm = drift1 - np.float32(0.5)
+        syncp = self._stage(zj, shift1[:, None], f1[:, None],
+                            drift_offsets(cands, driftp, cf))[:, 0, 0]
+        syncm = self._stage(zj, shift1[:, None], f1[:, None],
+                            drift_offsets(cands, driftm, cf))[:, 0, 0]
+        updp = is_lin & (syncp > sync1)
+        updm = is_lin & ~updp & (syncm > sync1)
+        drift1 = np.where(updp, driftp,
+                          np.where(updm, driftm, drift1)).astype(np.float32)
+        sync1 = np.where(updp, syncp, np.where(updm, syncm, sync1))
+        dsym = drift_offsets(cands, drift1, cf)
+
+        # stage 3: fine lag (+/-32 step 16) and fine freq (+/-2 * 0.05)
+        worth = sync1 > self.cfg.minsync1
+        lag_grid = shift1[:, None] + np.arange(-32, 33, 16)[None, :]
+        sync = self._stage(zj, lag_grid, f1[:, None], dsym)
+        fi, li = _first_argmax(sync)
+        shift1 = np.where(worth, lag_grid[cidx, li], shift1).astype(np.int32)
+        sync1 = np.where(worth, sync[cidx, 0, li], sync1)
+
+        freq_grid = (f1[:, None] + (np.arange(-2, 3) * 0.05)[None, :]
+                     ).astype(np.float32)
+        sync = self._stage(zj, shift1[:, None], freq_grid, dsym)
+        fi, li = _first_argmax(sync)
+        f1 = np.where(worth, freq_grid[cidx, fi], f1).astype(np.float32)
+        sync1 = np.where(worth, sync[cidx, fi, 0], sync1)
+
+        return Refined(freq=f1, shift=shift1, drift=drift1,
+                       sync=sync1.astype(np.float32),
+                       worth_a_try=worth & cands.valid)
+
+    # -- mode-2 soft symbols over all jiggled shifts -----------------------
+
+    def jiggle_offsets(self) -> np.ndarray:
+        return self._jiggles.copy()
+
+    def soft_symbols(self, z: np.ndarray, cands: Candidates, ref: Refined
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Returns (symbols (C, J, 162) uint8, sync (C, J), rms (C, J))
+        (finesync.py:624-649)."""
+        lag_grid = ref.shift[:, None] + self._jiggles[None, :]   # (C, J)
+        dsym = drift_offsets(cands, ref.drift, float(self.coarse.cf))
+        sync, p = self._stage(self._window(z), lag_grid, ref.freq[:, None],
+                              dsym, want_symbols=True)
+        sync = sync[:, 0, :]                                    # (C, J)
+        p = p[:, 0]                                             # (C,J,162,4)
+        sync_bit = SYNC_VECTOR.astype(bool)[None, None, :]
+        fsymb = np.where(sync_bit, p[..., 3] - p[..., 1],
+                         p[..., 2] - p[..., 0]).astype(np.float32)
+        fsum = fsymb.mean(axis=-1, keepdims=True)
+        f2sum = (fsymb * fsymb).mean(axis=-1, keepdims=True)
+        fac = np.sqrt(f2sum - fsum * fsum)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            scaled = self.cfg.symfac * fsymb / fac
+        scaled = np.clip(np.nan_to_num(scaled), -128.0, 127.0)
+        symbols = np.floor(scaled + 128.0).astype(np.uint8)
+        y = symbols.astype(np.float32) - 128.0
+        rms = np.sqrt((y * y).mean(axis=-1))
+        return symbols, sync, rms
+
+
+__all__ = ["FineSync", "Refined", "complex_to_ri", "drift_offsets",
+           "eval_probe_grid", "eval_probe_grid_core", "jiggle_offsets",
+           "make_shared_probe", "make_shared_probe_lanes", "phasor_ramp",
+           "probe_constants", "probe_derotate", "shared_probe_eval",
+           "sync_of_powers"]

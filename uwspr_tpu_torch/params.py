@@ -17,6 +17,13 @@ named here after those attributes without the leading underscore:
 ``state_numpy(config)`` builds them the way the JAX decoder does;
 ``state_from_numpy(d, device)`` turns such a dict (for example one read off
 a JAX ``DeviceDecoder``) into the port's tensors on ``device``.
+
+The host engine (``pipeline/decoder.py::WindowDecoder``) carries the
+drift-bank part only, ``HOST_STATE_KEYS``: ``host_state_numpy(config)``
+builds it, ``host_state_of(coarse, fine)`` reads it off a ``CoarseSearch``
+(its ``.models``) and a ``FineSync`` (``jiggle_offsets()``) of either
+package, and ``host_bank(d)`` validates it and splits it into the
+``DriftModelBank`` and the jiggle offsets.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from uwspr_tpu.protocol.constants import (
     INTERLEAVE_PERM,
     SYNC_VECTOR,
 )
-from uwspr_tpu_torch.coarse.search import build_drift_models
+from uwspr_tpu_torch.coarse.search import DriftModelBank, build_drift_models
 from uwspr_tpu_torch.demod.finesync import jiggle_offsets
 from uwspr_tpu_torch.device import resolve_device
 
@@ -46,6 +53,7 @@ STATE_SPEC = {
     "perm": ("i", torch.int64),
     "jiggles": ("i", torch.int64),
 }
+HOST_STATE_KEYS = ("offsets", "is_nl", "model_drift", "model_slm", "jiggles")
 
 
 def state_numpy(config: PipelineConfig) -> dict[str, np.ndarray]:
@@ -65,17 +73,20 @@ def state_numpy(config: PipelineConfig) -> dict[str, np.ndarray]:
     }
 
 
-def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device
+def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device,
+                     keys: tuple[str, ...] = tuple(STATE_SPEC)
                      ) -> dict[str, torch.Tensor]:
-    """Validate a state dict of numpy arrays and move it to ``device``."""
+    """Validate a state dict of numpy arrays holding exactly ``keys`` and
+    move it to ``device``."""
     dev = resolve_device(device)
-    missing = set(STATE_SPEC) - set(d)
-    extra = set(d) - set(STATE_SPEC)
+    missing = set(keys) - set(d)
+    extra = set(d) - set(keys)
     if missing or extra:
         raise ValueError(f"decoder state: missing {sorted(missing)}, "
                          f"unexpected {sorted(extra)}")
     out = {}
-    for name, (kind, tdtype) in STATE_SPEC.items():
+    for name in keys:
+        kind, tdtype = STATE_SPEC[name]
         a = np.asarray(d[name])
         if a.dtype.kind not in (kind, "u" if kind == "i" else kind):
             raise ValueError(f"decoder state {name}: dtype {a.dtype} is not "
@@ -87,7 +98,7 @@ def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device
               "model_slm": (M, 4), "sign": (162,), "sync_bit": (162,),
               "mettab": (2, 256), "perm": (162,)}
     for name, shape in shapes.items():
-        if tuple(out[name].shape) != shape:
+        if name in out and tuple(out[name].shape) != shape:
             raise ValueError(f"decoder state {name}: shape "
                              f"{tuple(out[name].shape)}, expected {shape}")
     if out["jiggles"].dim() != 1:
@@ -95,4 +106,35 @@ def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device
     return out
 
 
-__all__ = ["STATE_SPEC", "state_from_numpy", "state_numpy"]
+def host_state_numpy(config: PipelineConfig) -> dict[str, np.ndarray]:
+    """The host engine's part of state_numpy(config)."""
+    full = state_numpy(config)
+    return {k: full[k] for k in HOST_STATE_KEYS}
+
+
+def host_state_of(coarse, fine) -> dict[str, np.ndarray]:
+    """The host engine's state read off a CoarseSearch (``.models``, the
+    drift-model bank) and a FineSync (``jiggle_offsets()``), from the JAX
+    package or the port."""
+    m = coarse.models
+    return {"offsets": np.asarray(m.offsets),
+            "is_nl": np.asarray(m.is_nonlinear),
+            "model_drift": np.asarray(m.drift),
+            "model_slm": np.asarray(m.slm_params),
+            "jiggles": np.asarray(fine.jiggle_offsets())}
+
+
+def host_bank(d: dict[str, np.ndarray]
+              ) -> tuple[DriftModelBank, np.ndarray]:
+    """Validate a host-engine state dict -> (drift-model bank, jiggle
+    offsets (J,) int32)."""
+    t = state_from_numpy(d, "cpu", keys=HOST_STATE_KEYS)
+    bank = DriftModelBank(offsets=t["offsets"].numpy().astype(np.int32),
+                          is_nonlinear=t["is_nl"].numpy(),
+                          drift=t["model_drift"].numpy(),
+                          slm_params=t["model_slm"].numpy())
+    return bank, t["jiggles"].numpy().astype(np.int32)
+
+
+__all__ = ["HOST_STATE_KEYS", "STATE_SPEC", "host_bank", "host_state_numpy",
+           "host_state_of", "state_from_numpy", "state_numpy"]

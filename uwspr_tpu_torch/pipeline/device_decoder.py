@@ -4,12 +4,13 @@ Counterpart of uwspr_tpu/pipeline/jit_decoder.py::DeviceDecoder on its
 serving path, ``_decode_windows_batched`` (jit_decoder.py:698-730) under
 ``with_serving_defaults`` with cross-window candidate compaction:
 
-  STFT power -> smoothed SNR spectrum -> peak pick -> coarse sync grid
-  (conv) -> exact model selection (CUDA kernel) -> cross-window candidate
-  compaction -> phase A/B probe refinement -> joint fine grid, soft symbols
-  over all jiggles, sync/rms gates, deinterleave -> never-drop chunked
-  two-phase Fano (CUDA kernel) -> first success in jiggle order -> packed
-  (W, C, 23) float32.
+  STFT power (stft_impl "pallas": the fused CUDA kernel, computing only
+  the columns read) -> smoothed SNR spectrum -> peak pick -> coarse sync
+  grid (conv) -> exact model selection (CUDA kernel) -> cross-window
+  candidate compaction -> phase A/B probe refinement -> joint fine grid,
+  soft symbols over all jiggles, sync/rms gates, deinterleave -> never-drop
+  chunked two-phase Fano (CUDA kernel) -> first success in jiggle order ->
+  packed (W, C, 23) float32.
 
 PyTorch runs eagerly, so the JAX decoder's vmap over windows is a batch
 dimension written out and its bounded while loops are host loops; the one
@@ -18,8 +19,8 @@ chunk loop (and skips the Fano when nothing is gated).
 
 Configurations outside this slice raise NotImplementedError rather than
 running another code path: cand_compact_lanes == 0, fano_compact_lanes ==
-0, the wideband einsum grid (hpbm > 32 or grid_impl "einsum"), the Pallas
-STFT, osd_depth > 0, fano_mode "host" and truncate_stage.
+0, the wideband einsum grid (hpbm > 32 or grid_impl "einsum"), osd_depth >
+0, fano_mode "host" and truncate_stage.
 """
 
 from __future__ import annotations
@@ -93,8 +94,6 @@ def check_slice(config: PipelineConfig) -> None:
     if c.hpbm > 32 or c.grid_impl == "einsum":
         raise NotImplementedError(
             "the wideband im2col einsum grid (hpbm > 32) is not ported")
-    if c.stft_impl == "pallas":
-        raise NotImplementedError("the Pallas STFT kernel is not ported")
     if d.osd_depth > 0:
         raise NotImplementedError("on-device OSD (osd_depth > 0) is not "
                                   "ported")

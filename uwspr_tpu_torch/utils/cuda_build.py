@@ -10,10 +10,11 @@ The library lands in ``$UWSPR_TORCH_BUILD_DIR``, by default
 ``build/uwspr_tpu_torch/`` at the repository root, and its name carries a
 digest of the sources, the flags and ``nvcc --version``, so an edited source
 or another toolkit is rebuilt at first use and an unchanged one is loaded as
-it is. There is no
-``--use_fast_math``: the selection kernel relies on IEEE division and
-compares. The first kernel call in a process builds and loads; nothing is
-built at import time.
+it is. There is no ``--use_fast_math``: the selection kernel relies on
+IEEE division and compares, the probe kernel on sincosf's full range
+reduction and the STFT kernel on round-to-nearest products. The first
+kernel call in a process builds and loads; nothing is built at import
+time.
 """
 
 from __future__ import annotations
@@ -45,6 +46,12 @@ _SIGNATURES = {
                           _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p],
+    "uwspr_probe_powers": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
+                           _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
+                           _C.c_int, _C.c_float, _C.c_void_p, _C.c_void_p],
+    "uwspr_stft_power": [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+                         _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                         _C.c_int, _C.c_void_p, _C.c_void_p],
 }
 
 _lock = threading.Lock()
