@@ -5,11 +5,16 @@
 
 Phases, each raising on failure (nothing is caught):
 
-1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions; exits non-zero when torch.cuda.is_available() is False;
-2. build: compiles uwspr_tpu_torch/csrc/*.cu with one nvcc call, and the
-   JAX package's native C++ Fano decoder with g++ through the port's
-   loader (uwspr_tpu_torch/fec/host.py), into the port's build directory;
+1. device: the card's name and power limit (nvidia-smi), its maximum SM
+   clock, torch and CUDA versions; exits non-zero when
+   torch.cuda.is_available() is False;
+2. build: compiles uwspr_tpu_torch/csrc/*.cu (one nvcc per source, all
+   started together, then one link) and the port's native C++ Fano decoder
+   (uwspr_tpu_torch/fec/fano_native.cc) with g++, into the port's build
+   directory; prints each kernel's registers, static shared memory and
+   spills (ptxas -v; none may spill), the probe and STFT kernels' dynamic
+   shared memory at the paths' shapes, and the tensor-core (HMMA)
+   instructions of the STFT kernel read from the library with cuobjdump;
 3. selection kernel against its plain version: real-shaped
    (1664, 5, 26, 126) grids from the scene's coarse stage and from random
    data with NaNs and negatives, the adversarial cases of
@@ -21,10 +26,11 @@ Phases, each raising on failure (nothing is caught):
    including a block of 128 lanes that all time out; bit-exact;
 5. probe kernel against its plain version at the host engine's shapes on
    one scene window (C = 200 candidates of the scene's coarse search): the
-   (L=5, F=1) lag stage, the (L=1, F=5) freq stage and the 17-jiggle
-   soft-symbol call, with nonzero drift and edge lags -200 and 3400;
-   |corr| to rtol 2e-4 + atol 2e-2 (tests/test_probe_pallas.py), the
-   derived sync to 1e-5;
+   (L=5, F=1) lag stage, the (L=1, F=5) freq stage, the (L=1, F=1) drift
+   stage and the 17-jiggle soft-symbol call, with nonzero drift and edge lags -200 and 3400, a
+   16-freq (L=2, F=16) case and lags past the zero padding (clipped in
+   the kernel as ops/probe.py::lag_offsets clips them); |corr| to rtol 2e-4 + atol 2e-2
+   (tests/test_probe_pallas.py), the derived sync to 1e-5;
 6. STFT kernel against its plain version (matmul_bf16) on the 128-window
    scene, full width and at the device decoder's 48-column window; each
    window to 1e-5 of its peak power (bf16 x bf16 products are exact in
@@ -43,12 +49,21 @@ Phases, each raising on failure (nothing is caught):
 9. the device slice with stft_impl="pallas": 128/128 decoded with the STFT
    kernel launched and its plain version never called; ms/window beside
    the default configuration's, timed in turns;
-10. timing: each kernel against its plain version at the paths' shapes,
-   with CUDA events, in turns plain, kernel, kernel, plain; the two are
-   also held equal on those inputs.
+10. timing: each kernel, its plain version and, where one exists, the one
+   PyTorch call that computes the same function (torch.stft for the STFT,
+   the plain version's complex torch.bmm for the probe; none for the
+   selection walk and the Fano search) at the paths' shapes, with CUDA
+   events, in turns plain, kernel, library, library, kernel, plain, each
+   turn behind a spin kernel so that calls run back to back on the card;
+   kernel and plain are also held equal on those inputs. Each kernel's bound is
+   the least time the card could take: the larger of its bytes over the
+   HBM rate and its operations over their peak rate (H100 SXM data sheet,
+   700 W), and for Fano the longest lane's forward looks times one
+   shared-memory round trip.
 
-Prints a JSON line of per-kernel results before the last line, and as the
-last line {"ok": true, "device": {...}}.
+Prints a JSON line of per-kernel results (launches on the main path,
+times, bound, library call) before the last line, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -110,12 +125,18 @@ def phase_device():
         capture_output=True, text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0].strip()
     log(card)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    sm_mhz = int(clk.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     log(f"tf32: cuda.matmul {torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn {torch.backends.cudnn.allow_tf32} (the decoder pins both off)")
-    return card
+        f"cudnn {torch.backends.cudnn.allow_tf32} (the decoder pins both off)"
+        f"; max SM clock {sm_mhz} MHz")
+    return card, sm_mhz
 
 
 # ---------------------------------------------------------------- phase 2
@@ -130,12 +151,34 @@ def phase_build():
         f"{[str(p.relative_to(ROOT)) for p in cuda_build.kernel_sources()]}"
         f" -> {pathlib.Path(info['library']).relative_to(ROOT)} in "
         f"{info['seconds']:.2f} s (load {time.perf_counter() - t0:.2f} s)")
-    for line in info["log"].splitlines():
-        if "Used" in line or "spill" in line or "Compiling" in line:
-            log(f"[build] {line.strip()}")
+    res = cuda_build.kernel_resources(info["log"])
+    for name, r in res.items():
+        log(f"[build] ptxas {name}: {r['registers']} registers, "
+            f"{r['smem_bytes']} bytes static smem, {r['spill_bytes']} bytes "
+            f"spilled")
+        require(r["spill_bytes"] == 0, f"{name} spills registers")
+    lib = cuda_build.load_library()
+    # dynamic shared memory at the paths' shapes
+    from uwspr_tpu_torch.ops import probe, stft
+    for L, F in ((5, 1), (1, 5), (1, 1), (17, 1), (2, 16)):
+        S, threads, smem = probe.kernel_tiling(L, F)
+        require(lib.uwspr_probe_powers_smem(S, F) == smem,
+                "probe kernel_tiling's shared memory differs from the C side")
+        log(f"[build] probe_powers_kernel at L={L}, F={F}: {S} symbols x "
+            f"{threads} threads per block, {smem} bytes dynamic smem")
+    for ncols in (48, 512):
+        nt = stft.mma_tiles(ncols)
+        log(f"[build] stft_power_mma<{nt}> ({ncols} columns): "
+            f"{lib.uwspr_stft_power_smem(512, 128, nt)} bytes dynamic smem")
+    sass = cuda_build.sass_counts(info["library"], "HMMA")
+    mma = {k: v for k, v in sass.items() if "stft_power_mma" in k}
+    log(f"[build] tensor-core instructions (cuobjdump -sass) in the STFT "
+        f"kernels: {json.dumps(mma)}")
+    require(len(mma) == 4 and all(sum(v.values()) > 0 for v in mma.values()),
+            "the STFT kernels carry no HMMA instruction")
     native = load_native_fano()
     log(f"[build] native Fano decoder built from "
-        f"uwspr_tpu/fec/native/fano_native.cc: {native._name}")
+        f"uwspr_tpu_torch/fec/fano_native.cc: {native._name}")
 
 
 # ---------------------------------------------------------------- scene
@@ -143,8 +186,8 @@ def phase_build():
 def make_windows(n: int, seed: int = 0):
     """bench.py's workload (bench.py:39-51): n windows of one frame at
     SNR_DB with random frequency offsets and starts."""
-    from uwspr_tpu.io.channel import awgn
-    from uwspr_tpu.protocol.modulate import synthesize_frame
+    from uwspr_tpu_torch.io.channel import awgn
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
     rng = np.random.default_rng(seed)
     wins = []
     for _ in range(n):
@@ -157,7 +200,7 @@ def make_windows(n: int, seed: int = 0):
 
 
 def noise_windows(n: int, seed: int = 1):
-    from uwspr_tpu.io.channel import noise_sigma
+    from uwspr_tpu_torch.io.channel import noise_sigma
     rng = np.random.default_rng(seed)
     s = noise_sigma(SNR_DB)
     z = (rng.normal(scale=s, size=(n, 45000))
@@ -223,7 +266,7 @@ def phase_select(dec, ri_cuda):
 def fano_lanes(rng, n, sigma, scale=50.0):
     """n soft-symbol lanes: encoded random payloads plus gaussian noise
     (tests/test_fano_pallas.py:20-31); sigma None gives uniform noise."""
-    from uwspr_tpu.protocol.fec_encode import encode_bits
+    from uwspr_tpu_torch.protocol.fec_encode import encode_bits
     if sigma is None:
         return rng.integers(0, 256, size=(n, 162)).astype(np.uint8)
     out = []
@@ -263,7 +306,7 @@ def fano_equal(a: dict, b: dict, what: str) -> float:
 def phase_fano():
     import torch
 
-    from uwspr_tpu.protocol.constants import FANO_METTAB
+    from uwspr_tpu_torch.protocol.constants import FANO_METTAB
     from uwspr_tpu_torch.fec import fano
     met_c = torch.from_numpy(FANO_METTAB).cuda()
     rng = np.random.default_rng(5)
@@ -347,6 +390,7 @@ def probe_cases(hdec, ri):
             lag1, f1[:, None] + np.float32(0.25) * np.arange(-2, 3,
                                                              dtype=np.float32),
             False),
+        "drift stage (L=1, F=1)": (lag1, f1[:, None], False),
         "soft symbols (L=17, F=1)": (lag17, f1[:, None], True),
     }
 
@@ -383,8 +427,20 @@ def phase_probe(hdec, ri):
     from uwspr_tpu_torch.ops import probe
     cases = probe_cases(hdec, ri)
     z_ri = torch.from_numpy(np.ascontiguousarray(ri[0])).cuda()
+    # any F <= 16: a case off the host engine's shapes
+    lags, freqs, dsym, _ = cases["lag stage (L=5, F=1)"]
+    checks = dict(cases)
+    checks["16 freqs (L=2, F=16)"] = (
+        lags[:, 1:3].contiguous(),
+        freqs + 0.1 * torch.arange(16, device=freqs.device) - 0.8, dsym, False)
+    # lags past the zero padding, clipped as ops/probe.py::lag_offsets
+    far = lags[:, :2].clone()
+    far[0] = torch.tensor([-50000, -4000])
+    far[1] = torch.tensor([50000, 9000])
+    far[2] = torch.tensor([-4100, 45100])
+    checks["lags past the padding (L=2, F=1)"] = (far, freqs, dsym, False)
     err = 0.0
-    for name, (lags, freqs, dsym, _) in cases.items():
+    for name, (lags, freqs, dsym, _) in checks.items():
         L = lags.shape[1]
         with torch.no_grad(), exact_f32():
             pk = probe.probe_powers(z_ri, lags, freqs, dsym, n_lags=L)
@@ -442,7 +498,7 @@ def phase_stft(dec, ri_c):
 def phase_slice(card, dec, ri, ri_c):
     import torch
 
-    from uwspr_tpu.config import (DemodConfig, PipelineConfig,
+    from uwspr_tpu_torch.config import (DemodConfig, PipelineConfig,
                                   with_serving_defaults)
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
 
@@ -524,7 +580,7 @@ def spot_key(s):
 def phase_host_slice(card, hdec, ri):
     import dataclasses
 
-    from uwspr_tpu.config import PipelineConfig
+    from uwspr_tpu_torch.config import PipelineConfig
     from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
     zs = (ri[:N_HOST, 0] + 1j * ri[:N_HOST, 1]).astype(np.complex64)
     t0 = time.perf_counter()
@@ -601,7 +657,7 @@ def phase_host_slice(card, hdec, ri):
 def phase_pallas_slice(card, dec, ri_c):
     import torch
 
-    from uwspr_tpu.config import (CoarseConfig, PipelineConfig,
+    from uwspr_tpu_torch.config import (CoarseConfig, PipelineConfig,
                                   with_serving_defaults)
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
     pdec = DeviceDecoder(with_serving_defaults(
@@ -644,47 +700,105 @@ def phase_pallas_slice(card, dec, ri_c):
 
 # ---------------------------------------------------------------- phase 10
 
-def time_pair(plain_fn, kernel_fn, n_plain, n_kernel):
-    """Mean ms per call of each, CUDA events, turns plain/kernel/kernel/
-    plain after one warm-up call of each; also returns the warm-up calls'
-    results (plain, kernel) for comparison."""
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
+# the card's own limit is printed beside every time): HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+BF16_FLOP_S = 989e12
+F32_FLOP_S = 67e12
+# One Fano forward look is a chain of dependent steps: at least one
+# shared-memory round trip (the metric-table lookup), about 30 SM clocks.
+FANO_STEP_CLOCKS = 30
+# a spin of about 25 ms at 2 GHz that holds the card while the host
+# enqueues the timed calls, so that they run back to back on the card
+SPIN_CYCLES = 50_000_000
+
+
+def bound(nbytes: float, flops: float, flop_s: float, op_kind: str):
+    """(bound_ms, bound_by, bound_kind): the larger of the bytes over the
+    HBM rate and the operations over their peak rate."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    to = flops / flop_s * 1e3
+    return (tb, "bytes", "HBM") if tb >= to else (to, "operations", op_kind)
+
+
+def time_turns(fns, reps):
+    """Mean ms per call of each (name, fn), CUDA events, in turns
+    A B C .. C B A after one warm-up call of each; returns ({name: ms},
+    {name: [ms of each turn]}, {name: warm-up result}). Each turn starts
+    behind a spin kernel, so a call whose host work is shorter than its
+    device work is timed on the card alone (wrapper kernels included), and
+    one that waits on the host is timed with that wait."""
     import torch
-    outs = (plain_fn(), kernel_fn())
+    outs = {name: fn() for name, fn in fns}
     torch.cuda.synchronize()
 
     def timed(fn, n):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         for _ in range(n):
             fn()
         e.record()
         torch.cuda.synchronize()
         return s.elapsed_time(e) / n
-    p1 = timed(plain_fn, n_plain)
-    k1 = timed(kernel_fn, n_kernel)
-    k2 = timed(kernel_fn, n_kernel)
-    p2 = timed(plain_fn, n_plain)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2), outs
+    turns = {name: [] for name, _ in fns}
+    for name, fn in list(fns) + list(reversed(fns)):
+        turns[name].append(timed(fn, reps[name]))
+    return ({k: sum(v) / len(v) for k, v in turns.items()}, turns, outs)
 
 
-def phase_timing(dec, ri_c, scene, card):
+def fmt_turns(turns):
+    return "; ".join(f"{k} {', '.join(f'{x:.4f}' for x in v)}"
+                     for k, v in turns.items())
+
+
+def entry(name, source, replaces, shape, ms, plain_ms, bnd, library,
+          library_ms, err):
+    bms, by, kind = bnd
+    return {"name": name, "route": "cuda",
+            "source": f"uwspr_tpu_torch/csrc/{source}",
+            "replaces": replaces, "shape": shape, "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "bound_kind": kind,
+            "bound_share": bms / ms, "library": library,
+            "library_ms": library_ms}
+
+
+def timing_select(dec, scene, card):
     import torch
 
-    from uwspr_tpu_torch.fec import fano
     from uwspr_tpu_torch.ops import select as sel
     is_nl = dec.state["is_nl"]
     thr = float(dec.config.coarse.threshold)
-    sk, sp, turns, ((bp, ip), (bk, ik)) = time_pair(
-        lambda: sel.select_best_plain(scene, is_nl, threshold=thr),
-        lambda: sel.select_best(scene, is_nl, threshold=thr), 5, 50)
+    ms, turns, outs = time_turns(
+        [("plain", lambda: sel.select_best_plain(scene, is_nl, threshold=thr)),
+         ("kernel", lambda: sel.select_best(scene, is_nl, threshold=thr))],
+        {"plain": 5, "kernel": 50})
+    (bp, ip), (bk, ik) = outs["plain"], outs["kernel"]
     require(torch.equal(bk.view(torch.int32), bp.view(torch.int32))
             and torch.equal(ik, ip),
             "select timing inputs: kernel differs from plain")
-    sel_err = float((bk - bp).abs().nan_to_num().max())
-    log(f"[timing] {card}: select_best on {tuple(scene.shape)}: kernel "
-        f"{sk:.4f} ms, plain {sp:.4f} ms (turns p/k/k/p "
-        f"{', '.join(f'{x:.4f}' for x in turns)}); kernel == plain")
+    L = scene.shape[0]
+    nbytes = scene.numel() * 4 + is_nl.numel() + L * 8
+    e = entry("select_best", "select_best.cu",
+              "uwspr_tpu/ops/select_pallas.py:121", list(scene.shape),
+              ms["kernel"], ms["plain"],
+              bound(nbytes, scene.numel(), F32_FLOP_S, "f32"),
+              None, None, float((bk - bp).abs().nan_to_num().max()))
+    log(f"[timing] {card}: select_best {tuple(scene.shape)}: kernel "
+        f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library none "
+        f"(an order-dependent walk); bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_kind']}), {100 * e['bound_share']:.1f} % of it "
+        f"(turns {fmt_turns(turns)}); kernel == plain")
+    return e
+
+
+def timing_fano(dec, ri_c, card, sm_mhz):
+    import torch
+
+    from uwspr_tpu_torch.fec import fano
     # the slice's phase-1 Fano chunk: jiggle-0 lanes, gated first, 256 wide
     with torch.no_grad():
         pre = dec.prefano(ri_c)
@@ -695,73 +809,151 @@ def phase_timing(dec, ri_c, scene, card):
     sym, act = deint0[order].contiguous(), gate0[order].contiguous()
     met = dec.state["mettab"]
     mc = dec.config.demod.maxcycles
-    fk, fp, turns, (po, ko) = time_pair(
-        lambda: fano.fano_decode_batch_plain(sym, met, act, maxcycles=mc),
-        lambda: fano.fano_decode_batch(sym, met, act, maxcycles=mc), 2, 50)
-    fano_err = fano_equal(ko, po, f"kernel vs plain on the phase-1 chunk "
-                          f"maxcycles={mc}")
+    ms, turns, outs = time_turns(
+        [("plain", lambda: fano.fano_decode_batch_plain(sym, met, act,
+                                                        maxcycles=mc)),
+         ("kernel", lambda: fano.fano_decode_batch(sym, met, act,
+                                                   maxcycles=mc))],
+        {"plain": 2, "kernel": 50})
+    err = fano_equal(outs["kernel"], outs["plain"],
+                     f"kernel vs plain on the phase-1 chunk maxcycles={mc}")
+    cyc = outs["kernel"]["cycles"][act].to(torch.int64)
+    csum, cmax = int(cyc.sum()), int(cyc.max())
+    bms = cmax * FANO_STEP_CLOCKS / (sm_mhz * 1e6) * 1e3
+    e = entry("fano_decode", "fano.cu", "uwspr_tpu/fec/fano_pallas.py:243",
+              [FL, 162], ms["kernel"], ms["plain"],
+              (bms, "operations", "latency"), None, None, err)
+    e.update(cycles_sum=csum, cycles_max=cmax)
     log(f"[timing] {card}: fano_decode on the phase-1 chunk ({FL} lanes, "
-        f"{int(act.sum())} gated, maxcycles={mc}): kernel {fk:.4f} ms, "
-        f"plain {fp:.4f} ms (turns p/k/k/p "
-        f"{', '.join(f'{x:.4f}' for x in turns)}); kernel == plain, "
-        f"bit-exact")
-    return ({"select_best": (sk, sp), "fano_decode": (fk, fp)},
-            {"select_best": sel_err, "fano_decode": fano_err})
+        f"{int(act.sum())} gated, maxcycles={mc}; cycles sum {csum}, max "
+        f"{cmax}): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms,"
+        f" library none (a sequential search); bound {bms:.4f} ms (the "
+        f"longest lane's {cmax} forward looks x {FANO_STEP_CLOCKS} clocks at"
+        f" {sm_mhz} MHz), {100 * e['bound_share']:.1f} % of it (turns "
+        f"{fmt_turns(turns)}); kernel == plain, bit-exact")
+    return e
 
 
-def phase_timing_probe_stft(card, z_ri, cases, z, kw, stft_inputs):
-    """The probe kernel on the 17-jiggle soft-symbol call and the STFT
-    kernel at the device decoder's column window (and full width), each
-    against its plain version."""
+def probe_library_inputs(z_ri, lags, freqs, dsym):
+    """The operands of probe_powers_plain's complex product (the derotated
+    windows and the lag-masked tone banks), built once: the library
+    yardstick is that one torch.bmm."""
+    import torch
+
+    from uwspr_tpu_torch.ops import probe
+    N = z_ri.shape[1]
+    C, F = freqs.shape
+    L = lags.shape[1]
+    W = 1024
+    base, b = probe.lag_offsets(lags, N)
+    z = torch.complex(z_ri[0], z_ri[1])
+    pos = base[:, None] + torch.arange(162 * 256 + W, device=z.device) - \
+        probe.PAD
+    A = torch.where((pos >= 1) & (pos < N), z[pos.clamp(0, N - 1)], 0)
+    jpf = torch.arange(W, dtype=torch.float32, device=z.device)
+    phase = torch.tensor(probe.PHASE, device=z.device)
+    wd = (phase * dsym)[..., None] * jpf
+    zd = A.unfold(-1, W, 256)[:, :162] * torch.complex(torch.cos(wd),
+                                                       torch.sin(wd))
+    ft = freqs[..., None] + torch.from_numpy(probe.TONES_HZ).to(z.device)
+    wb = (phase * ft)[..., None] * jpf
+    bank = torch.complex(torch.cos(wb), torch.sin(wb)).reshape(C, 1, 4 * F,
+                                                               W)
+    mask = ((jpf >= b[..., None]) & (jpf < b[..., None] + 256)).float()
+    bankt = (bank * mask[:, :, None, :]).reshape(C, L * 4 * F, W)
+    return zd.contiguous(), bankt.transpose(1, 2).contiguous()
+
+
+def timing_probe(card, z_ri, cases):
     import torch
 
     from uwspr_tpu_torch.device import exact_f32
-    from uwspr_tpu_torch.ops import probe, stft
-    lags, freqs, dsym, _ = cases["soft symbols (L=17, F=1)"]
-    L = lags.shape[1]
-    with torch.no_grad(), exact_f32():
-        pk_ms, pp_ms, turns, (pp, pk) = time_pair(
-            lambda: probe.probe_powers_plain(z_ri, lags, freqs, dsym,
-                                             n_lags=L),
-            lambda: probe.probe_powers(z_ri, lags, freqs, dsym, n_lags=L),
-            5, 20)
-    probe_err = probe_error(pk, pp, "timing inputs")
-    log(f"[timing] {card}: probe_powers on the 17-jiggle call "
-        f"{tuple(pk.shape)}: kernel {pk_ms:.4f} ms, plain {pp_ms:.4f} ms "
-        f"(turns p/k/k/p {', '.join(f'{x:.4f}' for x in turns)})")
-    times = {"probe_powers": (pk_ms, pp_ms)}
-    stft_err = 0.0
-    for name in ("full width", "column window"):
+    from uwspr_tpu_torch.ops import probe
+    N = z_ri.shape[1]
+    out = {}
+    for name, (lags, freqs, dsym, _) in cases.items():
+        C, F = freqs.shape
+        L = lags.shape[1]
+        zd, bankt = probe_library_inputs(z_ri, lags, freqs, dsym)
+        with torch.no_grad(), exact_f32():
+            ms, turns, outs = time_turns(
+                [("plain", lambda: probe.probe_powers_plain(
+                    z_ri, lags, freqs, dsym, n_lags=L)),
+                 ("kernel", lambda: probe.probe_powers(
+                     z_ri, lags, freqs, dsym, n_lags=L)),
+                 ("library", lambda: torch.bmm(zd, bankt))],
+                {"plain": 5, "kernel": 20, "library": 10})
+        err = probe_error(outs["kernel"], outs["plain"], f"timing {name}")
+        macs = C * F * L * 162 * 4 * 256           # complex multiply-adds
+        nbytes = (2 * N + C * L + C * F + C * 162) * 4 + macs // 256 * 4
+        e = entry("probe_powers", "probe_powers.cu",
+                  "uwspr_tpu/ops/probe_pallas.py:123", [C, F, L, 162, 4],
+                  ms["kernel"], ms["plain"],
+                  bound(nbytes, 8 * macs, F32_FLOP_S, "f32 FMA"),
+                  "torch.bmm (complex64, the plain version's product)",
+                  ms["library"], err)
+        log(f"[timing] {card}: probe_powers {name} {tuple(e['shape'])}: "
+            f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+            f"torch.bmm {ms['library']:.4f} ms; bound {e['bound_ms']:.4f} ms"
+            f" ({e['bound_kind']}), {100 * e['bound_share']:.1f} % of it "
+            f"(turns {fmt_turns(turns)})")
+        out[name] = e
+    return out
+
+
+def timing_stft(card, z, kw, stft_inputs):
+    import torch
+
+    from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.ops import stft
+    out = {}
+    B, fl = z.shape
+    size, hop, n = kw["size"], kw["hop"], kw["n_ffts"]
+    for name in ("column window", "full width"):
         col, consts = stft_inputs[name]
+        w = consts["window"]
 
         def run(impl):
             return stft.stft_power_core(z, impl=impl, col_window=col,
                                         consts=consts, **kw)
+
+        def library():
+            s = torch.stft(z, size, hop_length=hop, window=w, center=False,
+                           return_complex=True)
+            ps = torch.fft.fftshift(s.real ** 2 + s.imag ** 2, dim=-2)
+            ps = ps.transpose(-1, -2)
+            return ps if col is None else ps[..., col[0]:col[1]]
         with torch.no_grad(), exact_f32():
-            sk, sp, turns, (spl, sker) = time_pair(
-                lambda: run("matmul_bf16"), lambda: run("pallas"), 10, 50)
-        stft_err = max(stft_err, stft_error(sker, spl, f"timing {name}"))
-        log(f"[timing] {card}: stft_power {name} {tuple(sker.shape)}: "
-            f"kernel {sk:.4f} ms, plain {sp:.4f} ms (turns p/k/k/p "
-            f"{', '.join(f'{x:.4f}' for x in turns)})")
-        times["stft_power"] = (sk, sp)      # the column window is kept
-    return times, {"probe_powers": probe_err, "stft_power": stft_err}
-
-
-def kernel_entry(name, source, replaces, launches, err, times):
-    return {"name": name, "route": "cuda",
-            "source": f"uwspr_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": times[0], "plain_ms": times[1]}
+            ms, turns, outs = time_turns(
+                [("plain", lambda: run("matmul_bf16")),
+                 ("kernel", lambda: run("pallas")), ("library", library)],
+                {"plain": 10, "kernel": 50, "library": 20})
+        err = stft_error(outs["kernel"], outs["plain"], f"timing {name}")
+        ncols = outs["kernel"].shape[-1]
+        nbytes = B * fl * 8 + B * n * ncols * 4
+        flops = 2.0 * B * n * (2 * size) * (2 * ncols)
+        e = entry("stft_power", "stft_power.cu",
+                  "uwspr_tpu/ops/stft_pallas.py:80", [B, n, ncols],
+                  ms["kernel"], ms["plain"],
+                  bound(nbytes, flops, BF16_FLOP_S, "tensor core"),
+                  "torch.stft (f32, all 512 columns) + |.|^2 + fftshift",
+                  ms["library"], err)
+        log(f"[timing] {card}: stft_power {name} {tuple(e['shape'])}: "
+            f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+            f"torch.stft {ms['library']:.4f} ms; bound {e['bound_ms']:.4f} "
+            f"ms ({e['bound_kind']}), {100 * e['bound_share']:.1f} % of it "
+            f"(turns {fmt_turns(turns)})")
+        out[name] = e
+    return out
 
 
 def main() -> int:
-    card = phase_device()
+    card, sm_mhz = phase_device()
     sys.path.insert(0, str(ROOT))
     phase_build()
     import torch
 
-    from uwspr_tpu.config import PipelineConfig, with_serving_defaults
+    from uwspr_tpu_torch.config import PipelineConfig, with_serving_defaults
     from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
     dec = DeviceDecoder(with_serving_defaults(PipelineConfig(), N_WINDOWS),
@@ -776,31 +968,26 @@ def main() -> int:
     launches = phase_slice(card, dec, ri, ri_c)
     host_launches, _ = phase_host_slice(card, hdec, ri)
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
-    times, errs = phase_timing(dec, ri_c, scene, card)
-    times2, errs2 = phase_timing_probe_stft(card, z_ri, cases, z, kw,
-                                            stft_inputs)
-    times.update(times2)
-    kernels = [
-        kernel_entry("select_best", "select_best.cu",
-                     "uwspr_tpu/ops/select_pallas.py:121",
-                     launches["select_best"],
-                     max(sel_err, errs["select_best"]), times["select_best"]),
-        kernel_entry("fano_decode", "fano.cu",
-                     "uwspr_tpu/fec/fano_pallas.py:243",
-                     launches["fano_decode"],
-                     max(fano_err, errs["fano_decode"]), times["fano_decode"]),
-        kernel_entry("probe_powers", "probe_powers.cu",
-                     "uwspr_tpu/ops/probe_pallas.py:123",
-                     host_launches["probe_powers"],
-                     max(probe_err, errs2["probe_powers"]),
-                     times["probe_powers"]),
-        kernel_entry("stft_power", "stft_power.cu",
-                     "uwspr_tpu/ops/stft_pallas.py:80",
-                     pallas_launches["stft_power"],
-                     max(stft_err, errs2["stft_power"]),
-                     times["stft_power"]),
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+
+    sel = timing_select(dec, scene, card)
+    fan = timing_fano(dec, ri_c, card, sm_mhz)
+    probes = timing_probe(card, z_ri, cases)
+    stfts = timing_stft(card, z, kw, stft_inputs)
+    prb = probes["soft symbols (L=17, F=1)"]
+    stf = stfts["column window"]
+    prb["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                           for k, v in probes.items() if v is not prb}
+    stf["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                           for k, v in stfts.items() if v is not stf}
+    for e, n, err in ((sel, launches["select_best"], sel_err),
+                      (fan, launches["fano_decode"], fano_err),
+                      (prb, host_launches["probe_powers"], probe_err),
+                      (stf, pallas_launches["stft_power"], stft_err)):
+        e["launches"] = n
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -164,7 +164,7 @@ def print_profile(card: str, p: dict, what: str) -> None:
 def run_device(args, card: str, cuda: bool) -> dict:
     import torch
 
-    from uwspr_tpu.config import PipelineConfig, with_serving_defaults
+    from uwspr_tpu_torch.config import PipelineConfig, with_serving_defaults
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
     W = args.windows
     dec = DeviceDecoder(with_serving_defaults(PipelineConfig(), W),
@@ -193,7 +193,7 @@ def run_host(args, card: str, cuda: bool) -> dict:
     import numpy as np
     import torch
 
-    from uwspr_tpu.config import PipelineConfig
+    from uwspr_tpu_torch.config import PipelineConfig
     from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
     n = args.host_windows
     ri = make_windows(n)

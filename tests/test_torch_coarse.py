@@ -17,19 +17,21 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_copies import jax_coarse, jax_config
 from uwspr_tpu.coarse import search as jsearch
-from uwspr_tpu.config import CoarseConfig, PipelineConfig
-from uwspr_tpu.io.channel import awgn
 from uwspr_tpu.models.slm import slm_frequency_drift_jnp
 from uwspr_tpu.ops.stft import stft_power as jax_stft_host
 from uwspr_tpu.ops.stft import stft_power_core as jax_stft
 from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
-from uwspr_tpu.protocol.modulate import synthesize_frame
 from uwspr_tpu_torch.coarse import search as tsearch
+from uwspr_tpu_torch.config import (CoarseConfig, PipelineConfig,
+                                    with_serving_defaults)
+from uwspr_tpu_torch.io.channel import awgn
 from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
 from uwspr_tpu_torch.ops.stft import stft_power as torch_stft_host
 from uwspr_tpu_torch.ops.stft import stft_power_core as torch_stft
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+from uwspr_tpu_torch.protocol.modulate import synthesize_frame
 
 CFG = CoarseConfig()
 M_HALF = CFG.fft_size // 2
@@ -52,10 +54,11 @@ Z = _windows()
 
 def test_drift_models_match():
     for cfg in (CFG, CoarseConfig(maxdrift=2)):
-        a, b = jsearch.build_drift_models(cfg), tsearch.build_drift_models(cfg)
+        a = jsearch.build_drift_models(jax_coarse(cfg))
+        b = tsearch.build_drift_models(cfg)
         for f in ("offsets", "is_nonlinear", "drift", "slm_params"):
             np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
-        assert jsearch.max_peaks(cfg) == tsearch.max_peaks(cfg)
+        assert jsearch.max_peaks(jax_coarse(cfg)) == tsearch.max_peaks(cfg)
 
 
 @pytest.mark.parametrize("impl,col", [("fft", None), ("fft", (CB0, CB1)),
@@ -87,7 +90,7 @@ def test_smoothed_spectrum_and_peaks_match():
                                         m=M_HALF, col0=CB0).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-5)      # column sums
     cfg = PipelineConfig()
-    jdec = JaxDecoder(cfg)
+    jdec = JaxDecoder(jax_config(cfg))
     tdec = DeviceDecoder(_serving(cfg), device="cpu")
     v, i, s = tdec._peaks(torch.from_numpy(ref))
     for w in range(len(ref)):
@@ -133,7 +136,6 @@ def test_conv_grid_matches(dtype):
 
 
 def _serving(cfg):
-    from uwspr_tpu.config import with_serving_defaults
     return with_serving_defaults(cfg, 2)
 
 
@@ -142,7 +144,7 @@ def test_coarse_stage_matches():
     stage under the serving config: valid, shift, mode, drift and SLM
     params exact; freq exact; snr to 1e-5 relative."""
     cfg = _serving(PipelineConfig())
-    jdec = JaxDecoder(cfg)
+    jdec = JaxDecoder(jax_config(cfg))
     ref = jax.vmap(jdec._coarse_stage)(jnp.asarray(Z.astype(np.complex64)))
     tdec = DeviceDecoder(cfg, device="cpu")
     with torch.no_grad():
@@ -202,7 +204,7 @@ def test_detect_peaks_exact():
     for sm in sms + [ragged]:
         for cfg in (CFG, CoarseConfig(maxfreqs=4)):
             for a, b in zip(tsearch.detect_peaks(sm, cfg),
-                            jsearch.detect_peaks(sm, cfg)):
+                            jsearch.detect_peaks(sm, jax_coarse(cfg))):
                 assert a.dtype == b.dtype
                 np.testing.assert_array_equal(a, b)
 
@@ -222,7 +224,7 @@ def test_coarse_search_matches(w):
     """Host CoarseSearch candidates of two scenes: fields exact, snr and
     sync to 1e-5 relative."""
     got = tsearch.CoarseSearch(HOST_CFG, device="cpu")(SCENES[w])
-    ref = jsearch.CoarseSearch(HOST_CFG)(SCENES[w])
+    ref = jsearch.CoarseSearch(jax_coarse(HOST_CFG))(SCENES[w])
     assert got.n > 0
     _cands_equal(got, ref)
 
@@ -254,6 +256,74 @@ def test_pallas_stft_plain_matches_jax_kernel(col):
             ref = ref[:, col[0]:col[1]]
         assert got[w].shape == ref.shape
         assert np.abs(got[w] - ref).max() <= 1e-5 * ref.max()
+
+
+def _stft_gemm_emulation(z, consts, n_ffts, size, hop):
+    """The CUDA kernel's GEMM in plain torch. B' is rebuilt from
+    consts["frag"] as lane (g, t) = (lane // 4, lane % 4) of the kernel
+    reads it: register m of n8 tile i in k16 step s holds B'[16s + k, n],
+    k = (2t, 2t+1, 2t+8, 2t+9)[m], n = 8 * (block * nt + i) + g. A' holds
+    the windowed frames rounded to bf16 with K taken as the kernel takes
+    it: step s is the real parts of samples 8s..8s+7, then their imaginary
+    parts. D = A' B' with exact bf16 products and f32 sums; the power is
+    D[:, 2c]^2 + D[:, 2c+1]^2."""
+    frag = consts["frag"]
+    n_blocks, steps, nt = frag.shape[:3]
+    ncols = consts["cos"].shape[1]
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    k = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=-1)
+    Bp = torch.full((16 * steps, 8 * n_blocks * nt), float("nan"))
+    for nb in range(n_blocks):
+        for s in range(steps):
+            for i in range(nt):
+                n = 8 * (nb * nt + i) + g
+                Bp[16 * s + k, n[:, None].expand(32, 4)] = (
+                    frag[nb, s, i].float())
+    assert not torch.isnan(Bp).any()             # every entry read once
+    w = consts["window"]
+    fl = z.shape[-1]
+    pad = torch.nn.functional.pad(z, (0, n_ffts * hop + size - fl))
+    idx = torch.arange(n_ffts)[:, None] * hop + torch.arange(size)
+    frames = pad[..., idx]                                   # (B, n, size)
+    fr = (frames.real * w).to(torch.bfloat16).float()
+    fi = (frames.imag * w).to(torch.bfloat16).float()
+    A = torch.stack([fr.reshape(fr.shape[:-1] + (steps, 8)),
+                     fi.reshape(fi.shape[:-1] + (steps, 8))], dim=-2)
+    D = A.reshape(A.shape[:-3] + (16 * steps,)) @ Bp
+    power = D[..., 0::2] ** 2 + D[..., 1::2] ** 2
+    assert (D[..., 2 * ncols:] == 0).all()        # zero padding columns
+    return power[..., :ncols]
+
+
+@pytest.mark.parametrize("col", [None, (CB0, CB1)])
+def test_stft_gemm_formulation_matches_plain(col):
+    """The tensor-core GEMM of csrc/stft_power.cu (interleaved
+    [[C, S], [-S, C]] B in fragment order, [fr | fi] A, power of adjacent
+    columns) against impl="matmul_bf16": the same bf16 products, f32 sums in
+    another order, so 1e-5 of each window's peak power."""
+    from uwspr_tpu_torch.ops import stft as tstft
+    z = torch.from_numpy(Z.astype(np.complex64))
+    consts = tstft.stft_constants(CFG.fft_size, col, z.device)
+    kw = dict(n_ffts=CFG.n_ffts, size=CFG.fft_size, hop=CFG.spb // 2)
+    want = torch_stft(z, impl="matmul_bf16", col_window=col, consts=consts,
+                      **kw)
+    got = _stft_gemm_emulation(z, consts, **kw)
+    assert got.shape == want.shape
+    peak = want.amax(dim=(-2, -1), keepdim=True)
+    assert float(((got - want).abs() / peak).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("ncols,nt,n_blocks", [(48, 12, 1), (512, 16, 8),
+                                                (1, 4, 1), (17, 8, 1),
+                                                (40, 12, 1), (100, 16, 2)])
+def test_dft_fragment_shapes(ncols, nt, n_blocks):
+    from uwspr_tpu_torch.ops import stft as tstft
+    assert tstft.mma_tiles(ncols) == nt
+    c = torch.zeros((64, ncols))
+    frag = tstft.dft_fragments(c, c)
+    assert tuple(frag.shape) == (n_blocks, 8, nt, 32, 4)
+    assert frag.dtype == torch.bfloat16
 
 
 @pytest.mark.cuda

@@ -21,13 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from uwspr_tpu.config import (CoarseConfig, DemodConfig, PipelineConfig,
-                              with_serving_defaults)
-from uwspr_tpu.io.channel import awgn, noise_sigma
+from test_torch_copies import jax_config
 from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
-from uwspr_tpu.protocol.modulate import synthesize_frame
 from uwspr_tpu_torch import params
+from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig, PipelineConfig,
+                                    with_serving_defaults)
+from uwspr_tpu_torch.io.channel import awgn, noise_sigma
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+from uwspr_tpu_torch.protocol.modulate import synthesize_frame
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = with_serving_defaults(PipelineConfig(demod=DemodConfig(maxcycles=2000)),
@@ -56,7 +57,7 @@ RI = scene()
 
 @pytest.fixture(scope="module")
 def jax_run():
-    dec = JaxDecoder(CFG)
+    dec = JaxDecoder(jax_config(CFG))
     return dec, np.asarray(dec.decode_windows_ri(RI))
 
 
@@ -156,7 +157,7 @@ def test_pallas_stft_slice_matches_jax(jax_run, port_run):
 
     from uwspr_tpu_torch.ops import stft
     cfg = dc.replace(CFG, coarse=dc.replace(CFG.coarse, stft_impl="pallas"))
-    jdec = JaxDecoder(cfg)
+    jdec = JaxDecoder(jax_config(cfg))
     j = jdec.unpack_output(np.asarray(jdec.decode_windows_ri(RI)))
     before = stft.PLAIN_CALLS
     tdec = DeviceDecoder(cfg, device="cpu")
@@ -180,27 +181,40 @@ def test_cuda_request_without_card_raises():
 
 
 _NO_JAX = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import numpy as np
 import torch
 import uwspr_tpu_torch
+jax_pkg = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(uwspr_tpu_torch.__file__))), "uwspr_tpu") + os.sep
+opened = []
+
+def audit(event, args):
+    if event == "open" and isinstance(args[0], (str, bytes, os.PathLike)):
+        path = os.path.abspath(os.fsdecode(args[0]))
+        if path.startswith(jax_pkg):
+            opened.append(path)
+sys.addaudithook(audit)
 for m in pkgutil.walk_packages(uwspr_tpu_torch.__path__, "uwspr_tpu_torch."):
     importlib.import_module(m.name)
-from uwspr_tpu.config import DemodConfig, PipelineConfig, with_serving_defaults
+from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig, PipelineConfig,
+                                    with_serving_defaults)
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
 ri = np.load(sys.argv[1])
 cfg = with_serving_defaults(PipelineConfig(demod=DemodConfig(maxcycles=200)), 2)
 dec = DeviceDecoder(cfg, device="cpu")
 out = dec.unpack_output(dec.decode_windows_ri(torch.from_numpy(ri)))
 print(dec.messages(out.window(0)))
-from uwspr_tpu.config import CoarseConfig
 from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
 z = ri[0, 0] + 1j * ri[0, 1]
 host = WindowDecoder(PipelineConfig(coarse=CoarseConfig(maxfreqs=13),
                                     demod=DemodConfig(maxcycles=300)),
                      device="cpu")
-print("host", [s.message for s in host(z).spots])
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+print("host", [s.message for s in host(z).spots])   # native Fano backend
+leaked = sorted(m for m in sys.modules if m.startswith("jax")
+                or m == "uwspr_tpu" or m.startswith("uwspr_tpu."))
+assert not leaked, leaked
+assert not opened, opened
 print("NO_JAX_OK")
 """
 
@@ -215,3 +229,12 @@ def test_port_never_imports_jax(tmp_path):
     assert "NO_JAX_OK" in proc.stdout
     assert "VE3EMB FN25 30" in proc.stdout
     assert "host ['VE3EMB FN25 30']" in proc.stdout
+
+
+def test_entry_points_take_only_port_configs():
+    jcfg = jax_config(CFG)
+    with pytest.raises(TypeError, match="uwspr_tpu_torch.config"):
+        DeviceDecoder(jcfg, device="cpu")
+    from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
+    with pytest.raises(TypeError, match="uwspr_tpu_torch.config"):
+        WindowDecoder(jcfg, device="cpu")

@@ -22,11 +22,11 @@ import pytest
 import torch
 
 from uwspr_tpu.demod import finesync as jfs
-from uwspr_tpu.io.channel import awgn
 from uwspr_tpu.ops.probe_pallas import pad_window_ri, probe_powers_pallas
-from uwspr_tpu.protocol.modulate import synthesize_frame
 from uwspr_tpu_torch.demod import finesync as tfs
+from uwspr_tpu_torch.io.channel import awgn
 from uwspr_tpu_torch.ops import probe
+from uwspr_tpu_torch.protocol.modulate import synthesize_frame
 
 RTOL_XLA, ATOL_XLA = 1e-5, 1e-3
 RTOL_PALLAS, ATOL_PALLAS = 2e-4, 2e-2
@@ -142,6 +142,84 @@ def test_host_helpers_match_jax():
         np.testing.assert_array_equal(a, b)
 
 
+def _lag_shared_emulation(z_ri, lags, freqs, drift, n_lags):
+    """The CUDA kernel's formulation in plain torch: per candidate one
+    derotated window zd[i, j'] over the span [min b, max b + 256) of window
+    indices its lags reach and one tone bank T[f, t, j'] over the same span,
+    each built once with the kernel's f32 angles; every lag sums its slice
+    [b, b + 256) of zd * T. The sample index is o + 256*i + j' with
+    o = base - PAD, zero outside 1 <= n < N (sample 0 is zeroed)."""
+    N = z_ri.shape[1]
+    base, b = probe.lag_offsets(lags, N)
+    C, F = freqs.shape
+    z = torch.complex(z_ri[0], z_ri[1])
+    phase = torch.tensor(probe.PHASE)
+    tones = torch.from_numpy(probe.TONES_HZ)
+    out = torch.empty((C, F, n_lags, 162, 4))
+    for c in range(C):
+        lo, hi = int(b[c].min()), int(b[c].max()) + 256
+        jp = torch.arange(lo, hi)
+        n = int(base[c]) - probe.PAD + 256 * torch.arange(162)[:, None] + jp
+        x = torch.where((n >= 1) & (n < N), z[n.clamp(0, N - 1)], 0)
+        ad = (phase * drift[c])[:, None] * jp.float()
+        zd = x * torch.complex(torch.cos(ad), torch.sin(ad))    # (162, W')
+        ab = (phase * (freqs[c][:, None] + tones))[..., None] * jp.float()
+        bank = torch.complex(torch.cos(ab), torch.sin(ab))      # (F, 4, W')
+        for lag in range(n_lags):
+            k = int(b[c, lag]) - lo
+            prod = (zd[None, :, None, k:k + 256]
+                    * bank[:, None, :, k:k + 256])              # (F,162,4,256)
+            out[c, :, lag] = prod.sum(-1).abs()
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + ["jiggles_4x1x17",
+                                                  "freqs_2x16x2"])
+def test_lag_shared_formulation_matches_plain(name):
+    """The lag-shared probe (one derotated window per (c, i), one bank per
+    c, sliced per lag) against probe_powers_plain, with edge lags and
+    nonzero drift; the sums are taken in another order, so the plain
+    version's own tolerance against _probe_powers_xla."""
+    if name == "jiggles_4x1x17":
+        lags, freqs, drift = _case(4, 1, 17, edge=True)
+        lags[0] = 700 + 8 * np.array([0, -1, 1, -2, 2, -3, 3, -4, 4, -5, 5,
+                                      -6, 6, -7, 7, -8, 8])
+    elif name == "freqs_2x16x2":
+        lags, freqs, drift = _case(2, 16, 2)
+    else:
+        C, F, L, edge = CASES[name]
+        lags, freqs, drift = _case(C, F, L, edge)
+    L = lags.shape[1]
+    args = [torch.from_numpy(a) for a in (tfs.complex_to_ri(Z), lags, freqs,
+                                          drift)]
+    want = probe.probe_powers_plain(*args, n_lags=L).numpy()
+    got = _lag_shared_emulation(*args, n_lags=L).numpy()
+    assert want.max() > 50.0
+    np.testing.assert_allclose(got, want, rtol=RTOL_XLA, atol=ATOL_XLA)
+    sign = tfs.probe_constants("cpu")["sign"]
+    np.testing.assert_allclose(
+        tfs.sync_of_powers(torch.from_numpy(got), sign).numpy(),
+        tfs.sync_of_powers(torch.from_numpy(want), sign).numpy(),
+        atol=SYNC_ATOL)
+
+
+@pytest.mark.parametrize("L,F", [(5, 1), (1, 5), (17, 1), (1, 16), (2, 16),
+                                 (1, 1), (40, 16)])
+def test_kernel_tiling(L, F):
+    """Every thread owns one (lag, freq) and 2 symbols of a tile: the block
+    covers L * F * S / 2 outputs, the tiles cover the 162 symbols, and the
+    shared memory fits a block of the card (227 KB)."""
+    S, threads, smem = probe.kernel_tiling(L, F)
+    assert S % 2 == 0 and 2 <= S <= 64
+    assert max(128, L * F * S // 2) <= threads <= 1024
+    assert threads % 32 == 0
+    tiles = -(-162 // S)
+    assert tiles * S >= 162 and (tiles - 1) * S < 162
+    assert smem == 8 * (S + 4 * F) * 129 <= 227 * 1024
+    if L * F <= 256:
+        assert threads <= 256 + 31
+
+
 def test_wrapper_rejects_bad_input():
     lags, freqs, drift = _case(2, 1, 3)
     z_ri = torch.from_numpy(tfs.complex_to_ri(Z))
@@ -170,3 +248,32 @@ def test_probe_kernel_matches_plain_on_card(name):
     assert probe.KERNEL_LAUNCHES == before + 1
     np.testing.assert_allclose(pk.cpu().numpy(), pp.cpu().numpy(),
                                rtol=RTOL_PALLAS, atol=ATOL_PALLAS)
+
+
+def test_build_log_readers():
+    """chip_smoke.py reports registers, shared memory and tensor-core
+    instructions from the nvcc build: the readers on canned tool output."""
+    from uwspr_tpu_torch.utils import cuda_build
+    log = ("ptxas info    : Compiling entry function '_Z3fooPf' for "
+           "'sm_90a'\n"
+           "ptxas info    : Function properties for _Z3fooPf\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 95 registers, 16 bytes smem, 392 bytes "
+           "cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z3barv' for "
+           "'sm_90a'\n"
+           "ptxas info    : Used 12 registers, 352 bytes cmem[0]\n")
+    assert cuda_build.kernel_resources(log) == {
+        "_Z3fooPf": {"registers": 95, "smem_bytes": 16, "spill_bytes": 8},
+        "_Z3barv": {"registers": 12, "smem_bytes": 0, "spill_bytes": 0}}
+    sass = ("\t\tFunction : _Z3fooPf\n"
+            "        /*0a30*/                   HMMA.16816.F32.BF16 R24, R44,"
+            " R52, R24 ;  /* 0x000000342c18723c */\n"
+            "        /*0a40*/               @P0 HMMA.16816.F32.BF16 R28, R44,"
+            " R54, R28 ;  /* 0x000000362c1c723c */\n"
+            "        /*0a50*/                   LDS.64 R2, [R3] ;\n"
+            "\t\tFunction : _Z3barv\n"
+            "        /*0010*/                   FFMA R1, R2, R3, R4 ;\n")
+    assert cuda_build.parse_sass(sass, "HMMA") == {
+        "_Z3fooPf": {"HMMA.16816.F32.BF16": 2}, "_Z3barv": {}}

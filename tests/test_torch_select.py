@@ -14,12 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_copies import jax_coarse
 from uwspr_tpu.coarse.search import build_drift_models, select_best_scan
-from uwspr_tpu.config import CoarseConfig
 from uwspr_tpu.ops.select_pallas import select_best_pallas
+from uwspr_tpu_torch.config import CoarseConfig
 from uwspr_tpu_torch.ops import select as sel
 
-_BANK = build_drift_models(CoarseConfig())
+_BANK = build_drift_models(jax_coarse(CoarseConfig()))
 _M = _BANK.offsets.shape[0]
 
 

@@ -22,14 +22,16 @@ import numpy as np
 import pytest
 import torch
 
-from uwspr_tpu.config import CoarseConfig, DemodConfig, PipelineConfig
-from uwspr_tpu.io.c2file import write_c2
-from uwspr_tpu.io.channel import awgn
+from test_torch_copies import jax_config
 from uwspr_tpu.pipeline import decoder as jdecoder
-from uwspr_tpu.protocol.modulate import synthesize_frame
 from uwspr_tpu_torch import params
+from uwspr_tpu_torch.config import CoarseConfig, DemodConfig, PipelineConfig
 from uwspr_tpu_torch.fec.host import fano_decode_batch_host
+from uwspr_tpu_torch.io.c2file import write_c2
+from uwspr_tpu_torch.io.channel import awgn
 from uwspr_tpu_torch.pipeline import decoder as tdecoder
+from uwspr_tpu_torch.protocol.constants import deinterleave
+from uwspr_tpu_torch.protocol.modulate import synthesize_frame
 
 COARSE = CoarseConfig(maxfreqs=13)
 CFG = PipelineConfig(coarse=COARSE, demod=DemodConfig(maxcycles=2000))
@@ -58,7 +60,7 @@ EXPECTED = {"one": ["K1ABC EM79 37"],
 
 @pytest.fixture(scope="module")
 def jax_dec():
-    return jdecoder.WindowDecoder(CFG)
+    return jdecoder.WindowDecoder(jax_config(CFG))
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +113,6 @@ def test_fine_sync_matches_jax(name, jax_dec, port_dec):
 def _gated_lanes(port_dec):
     """The deinterleaved soft symbols of scene "two"'s first candidates,
     plus two noise lanes, as the decoder hands them to the Fano stage."""
-    from uwspr_tpu.protocol.constants import deinterleave
     z = SCENES["two"]
     cands = port_dec.coarse(z)
     ref = port_dec.fine.refine(z, cands)
@@ -157,7 +158,7 @@ def test_osd_fallback_matches_jax():
     z = awgn(synthesize_frame("VE3EMB", "FN25", 30, start_sample=500,
                               freq_offset=1.0), -18.0,
              rng=np.random.default_rng(21))
-    ref = jdecoder.WindowDecoder(cfg)(z)
+    ref = jdecoder.WindowDecoder(jax_config(cfg))(z)
     got = tdecoder.WindowDecoder(cfg, device="cpu")(z)
     assert "VE3EMB FN25 30" in [s.message for s in got.spots]
     assert all(s.osd == 2 for s in got.spots)
@@ -171,7 +172,7 @@ def test_decode_c2_file_roundtrip(tmp_path):
     write_c2(p, z, name="test")
     got = tdecoder.decode_c2_file(p, CFG, device="cpu")
     assert "K1ABC EM79 37" in [s.message for s in got.spots]
-    _spots_match(got, jdecoder.decode_c2_file(p, CFG))
+    _spots_match(got, jdecoder.decode_c2_file(p, jax_config(CFG)))
 
 
 def test_state_read_off_jax_decodes_identically(jax_dec, port_dec):
@@ -214,10 +215,11 @@ def test_cuda_request_without_card_raises():
 
 
 def test_native_loader_builds_into_the_port_build_dir():
-    """The native Fano library is built from fano_native.cc into the port's
-    build directory, never the one beside the source."""
+    """The native Fano library is built from the port's own fano_native.cc
+    into the port's build directory, never beside the source."""
     from uwspr_tpu_torch.fec import host
     from uwspr_tpu_torch.utils import cuda_build
     lib = pathlib.Path(host.load_native_fano()._name)
     assert lib.parent == cuda_build.BUILD_DIR
     assert lib.parent != host.NATIVE_SOURCE.parent
+    assert host.NATIVE_SOURCE.parent == pathlib.Path(host.__file__).parent

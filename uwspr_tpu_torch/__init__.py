@@ -1,11 +1,12 @@
 """uwspr_tpu_torch — the PyTorch + CUDA port of uwspr_tpu's decode engines.
 
 The JAX package ``uwspr_tpu`` stays the reference; this package mirrors its
-layout module for module. The port imports ``torch`` and never ``jax``. It
-reuses the reference's JAX-free host layers as they are: ``uwspr_tpu.config``,
-``uwspr_tpu.protocol``, ``uwspr_tpu.io.c2file``, ``uwspr_tpu.io.channel``,
-``uwspr_tpu.fec.osd``, ``uwspr_tpu.fec.fano_ref``, ``uwspr_tpu.utils.timers``
-and the numpy half of ``uwspr_tpu.models.slm``.
+layout module for module. The port imports ``torch`` and never ``jax``, and
+nothing of ``uwspr_tpu``: it holds its own copies of the reference's JAX-free
+layers (``config``, ``protocol``, ``io.c2file``, ``io.channel``, ``fec.osd``,
+``fec.fano_ref``, the native Fano source ``fec/fano_native.cc``,
+``utils.timers`` and the numpy half of ``models.slm``), which the tests hold
+equal to the originals.
 
 Entry points: ``pipeline.device_decoder.DeviceDecoder`` (the batched
 serving path) and ``pipeline.decoder.WindowDecoder`` (the host engine).

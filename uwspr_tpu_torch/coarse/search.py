@@ -20,12 +20,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from uwspr_tpu.config import CoarseConfig
-from uwspr_tpu.models import slm
-from uwspr_tpu.protocol.constants import SYNC_VECTOR
+from uwspr_tpu_torch.config import CoarseConfig
 from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.models import slm
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power
+from uwspr_tpu_torch.protocol.constants import SYNC_VECTOR
 
 MODE_LINEAR = 0
 MODE_NONLINEAR = 1
@@ -236,6 +236,10 @@ class CoarseSearch:
                  device: str | torch.device,
                  models: DriftModelBank | None = None):
         self.cfg = cfg or CoarseConfig()
+        if not isinstance(self.cfg, CoarseConfig):
+            raise TypeError(f"cfg must be uwspr_tpu_torch.config."
+                            f"CoarseConfig, got {type(cfg).__module__}."
+                            f"{type(cfg).__name__}")
         if self.cfg.halfbandwidth > self.cfg.fs // 2:
             raise ValueError("halfbandwidth must be below fs/2")
         self.device = resolve_device(device)

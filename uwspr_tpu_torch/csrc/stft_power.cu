@@ -1,9 +1,10 @@
-// Fused STFT power: frame build + half-sine window + DFT (bf16 products, f32
-// sums) + |.|^2, frames kept out of device memory.
+// Fused STFT power on the tensor cores: frame build + half-sine window +
+// DFT as one bf16 GEMM with f32 sums (mma.sync m16n8k16) + |.|^2 in
+// registers; frames never reach device memory.
 //
 // Replaces: uwspr_tpu/ops/stft_pallas.py::stft_power_pallas (kernel
 // `_kernel`, stft_pallas.py:56-77) and keeps the numerics of its plain twin
-// ops/stft.py impl "matmul_bf16" (stft.py:74-93):
+// ops/stft.py impl "matmul_bf16":
 //
 //   fr[i, j] = bf16(Re z[i*hop + j] * w[j]),  fi likewise (product in f32),
 //   re[i, c] = sum_j fr*C[j, c] - sum_j fi*S[j, c],
@@ -11,23 +12,39 @@
 //   out[i, c] = re^2 + im^2,
 //
 // with C, S the cos/sin DFT matrices (fftshift folded in) rounded to bf16
-// and restricted to the caller's column window, so only the columns the
-// caller reads are computed. Samples at or past fl read as zero. A bf16 x
-// bf16 product is exact in f32, so kernel and plain version differ only in
-// the order of the f32 sums.
+// and restricted to the caller's column window. Samples at or past fl read
+// as zero. A bf16 x bf16 product is exact in f32, so kernel and plain
+// version differ only in the order of the f32 sums.
 //
-// What bounds it on the card: the DFT's multiply-adds (4 * 512 per output
-// column and frame) on the CUDA cores; the input is read once (360 KB per
-// window) and the output written once. At the device decoder's 48-column
-// window that is 4.4 GFLOP for a 128-window batch.
+// The GEMM: D = A . B with A = [fr | fi] (rows are frames, K = 2*size) and
+// B = [[C, S], [-S, C]], its columns interleaved as (re, im) pairs of each
+// output column, so that the two accumulators c0, c1 (and c2, c3) that an
+// mma fragment gives a thread are re and im of one output column and the
+// power is formed in registers and written once. K is taken in k16 steps of
+// 8 samples each: k 0..7 are the real parts of samples 8s..8s+7, k 8..15
+// their imaginary parts (a permutation of K that changes no product). Then
+// one 16-byte shared-memory load of two complex samples gives a thread both
+// its real (a0/a1) and its imaginary (a2/a3) A-fragment registers.
 //
-// What the design does about it: a block owns kFrames consecutive frames of
-// one window and kCols output columns. Frames overlap by size - hop samples,
-// so the block stages (kFrames - 1) * hop + size samples once in shared
-// memory; then, 64 DFT rows at a time, it builds the windowed bf16 frame
-// chunk and the matching cos/sin rows in shared memory (padded rows, no bank
-// conflicts) and each thread accumulates four columns of one frame in
-// registers. The product is computed here, not by cuBLAS.
+// B is built once per decoder (ops/stft.py::dft_fragments) directly in the
+// fragment order [n-block][k16 step][n8 tile][lane] of uint2 (b0, b1), so a
+// warp reads each fragment as one coalesced 256-byte row.
+//
+// What bounds it on the card: at the device decoder's 48-column window the
+// input (46 MB for 128 windows) on HBM and 8.8 GFLOP of bf16 products; at
+// full width 93 GFLOP on the tensor cores.
+//
+// What the design does about it: a block owns kFrames = 64 consecutive
+// frames of one window and NT n8 tiles (up to 128 GEMM columns). It stages
+// the frames' (64 - 1) * hop + size samples once in shared memory, with 8
+// float2 of padding after every 128 samples so the A-fragment loads of a
+// warp hit distinct banks. Its 8 warps form a 4 x 2 grid: each owns 16
+// frames and half of the block's n8 tiles, and builds its A fragments in
+// registers from the staged samples (window product and bf16 rounding as
+// in the plain version). B streams through shared memory in stages of
+// kChunkSteps k16 steps with cp.async, double-buffered. Two warps per 16
+// frames, each with half the columns, give 8 warps per block, twice the
+// warps per SM of one warp per 16 frames at the same shared memory.
 //
 // Build: nvcc without --use_fast_math; the window products and bf16
 // roundings are explicit round-to-nearest.
@@ -38,137 +55,219 @@
 
 namespace {
 
-constexpr int kFrames = 16;            // frames per block
-constexpr int kCols = 32;              // output columns per block
-constexpr int kColsPerThread = 4;
-constexpr int kThreads = kFrames * kCols / kColsPerThread;   // 128
-constexpr int kChunk = 64;             // DFT rows per shared-memory chunk
-constexpr int kRow = kChunk + 1;       // padded frame-chunk row stride
-constexpr size_t kStaticSmem =
-    sizeof(float) * (2 * kFrames * kRow + 2 * kChunk * kCols);
+constexpr int kFrames = 64;            // frames (GEMM rows) per block
+constexpr int kWarpsM = kFrames / 16;  // warps along the frames (one m16 each)
+constexpr int kWarpsN = 2;             // warps sharing each m16 row tile
+constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+constexpr int kChunkSteps = 4;         // k16 steps per B stage
+constexpr int kGroup = 128;            // samples between padding gaps
+constexpr int kGap = 8;                // float2 of padding per group
+constexpr int kMaxSmem = 227 * 1024;
 
+__host__ __device__ __forceinline__ int padded(int e) {
+  return e + (e / kGroup) * kGap;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (lo) in bits 0-15
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory of one block: padded samples, then two B stages.
+__host__ __device__ __forceinline__ int sample_slots(int size, int hop) {
+  const int span = (kFrames - 1) * hop + size;
+  return (padded(span - 1) + 2) & ~1;     // float2, rounded to 16 bytes
+}
+
+template <int NT>
 __global__ void __launch_bounds__(kThreads)
-stft_power_kernel(const float2* __restrict__ z, int fl, int n_ffts,
-                  int size, int hop, const float* __restrict__ window,
-                  const __nv_bfloat16* __restrict__ cosm,
-                  const __nv_bfloat16* __restrict__ sinm, int ncols,
-                  float* __restrict__ out) {
-  extern __shared__ float2 samples[];    // (kFrames - 1) * hop + size
-  __shared__ float fre[kFrames * kRow];
-  __shared__ float fim[kFrames * kRow];
-  __shared__ __align__(16) float cs_c[kChunk * kCols];
-  __shared__ __align__(16) float cs_s[kChunk * kCols];
+stft_power_mma(const float2* __restrict__ z, int fl, int n_ffts, int size,
+               int hop, const float* __restrict__ window,
+               const uint2* __restrict__ bfrag, int ncols,
+               float* __restrict__ out) {
+  constexpr int kStage = kChunkSteps * NT * 32;     // uint2 per B stage
+  constexpr int kTiles = NT / kWarpsN;              // n8 tiles per warp
+  extern __shared__ __align__(16) float2 samples[];
+  uint2* bbuf = reinterpret_cast<uint2*>(samples + sample_slots(size, hop));
 
   const int frame0 = blockIdx.x * kFrames;
-  const int col0 = blockIdx.y * kCols;
+  const int nb = blockIdx.y;
   const int w = blockIdx.z;
   const int tid = threadIdx.x;
-  const int f = tid / (kCols / kColsPerThread);
-  const int g = tid - f * (kCols / kColsPerThread);
-  const float2* zw = z + static_cast<size_t>(w) * fl;
+  const int warp = (tid >> 5) % kWarpsM;   // m16 row tile
+  const int nw = (tid >> 5) / kWarpsM;     // this warp's kTiles n8 tiles
+  const int lane = tid & 31;
+  const int g = lane >> 2;           // fragment row (and B column) in tile
+  const int t = lane & 3;            // fragment k pair / accumulator pair
+  const int steps = size / 8;
+  const uint2* bsrc = bfrag + static_cast<size_t>(nb) * steps * NT * 32;
 
+  auto load_stage = [&](int chunk, int buf) {
+    const uint2* src = bsrc + static_cast<size_t>(chunk) * kStage;
+    uint2* dst = bbuf + buf * kStage;
+    for (int e = 2 * tid; e < kStage; e += 2 * kThreads)
+      cp_async16(dst + e, src + e);
+    cp_async_commit();
+  };
+  load_stage(0, 0);
+
+  const float2* zw = z + static_cast<size_t>(w) * fl;
   const int span = (kFrames - 1) * hop + size;
   const int s0 = frame0 * hop;
   for (int e = tid; e < span; e += kThreads) {
     const int n = s0 + e;
-    samples[e] = n < fl ? zw[n] : make_float2(0.f, 0.f);
+    samples[padded(e)] = n < fl ? zw[n] : make_float2(0.f, 0.f);
   }
 
-  float a[kColsPerThread] = {}, bs[kColsPerThread] = {};
-  float c[kColsPerThread] = {}, d[kColsPerThread] = {};
-  for (int j0 = 0; j0 < size; j0 += kChunk) {
-    __syncthreads();   // samples staged / previous chunk consumed
-    for (int e = tid; e < kFrames * kChunk; e += kThreads) {
-      const int ff = e / kChunk;
-      const int jj = e - ff * kChunk;
-      const int j = j0 + jj;
-      float xr = 0.f, xi = 0.f;
-      if (j < size) {
-        const float2 x = samples[ff * hop + j];
-        const float wj = window[j];
-        xr = __bfloat162float(__float2bfloat16_rn(__fmul_rn(x.x, wj)));
-        xi = __bfloat162float(__float2bfloat16_rn(__fmul_rn(x.y, wj)));
-      }
-      fre[ff * kRow + jj] = xr;
-      fim[ff * kRow + jj] = xi;
-    }
-    for (int e = tid; e < kChunk * kCols; e += kThreads) {
-      const int jj = e / kCols;
-      const int cc = e - jj * kCols;
-      const int j = j0 + jj;
-      const int col = col0 + cc;
-      float vc = 0.f, vs = 0.f;
-      if (j < size && col < ncols) {
-        vc = __bfloat162float(cosm[static_cast<size_t>(j) * ncols + col]);
-        vs = __bfloat162float(sinm[static_cast<size_t>(j) * ncols + col]);
-      }
-      cs_c[e] = vc;
-      cs_s[e] = vs;
-    }
-    __syncthreads();
-    const float* fr_row = fre + f * kRow;
-    const float* fi_row = fim + f * kRow;
-#pragma unroll 4
-    for (int jj = 0; jj < kChunk; ++jj) {
-      const float xr = fr_row[jj];
-      const float xi = fi_row[jj];
-      const float4 cv = *reinterpret_cast<const float4*>(
-          cs_c + jj * kCols + g * kColsPerThread);
-      const float4 sv = *reinterpret_cast<const float4*>(
-          cs_s + jj * kCols + g * kColsPerThread);
-      const float cvs[4] = {cv.x, cv.y, cv.z, cv.w};
-      const float svs[4] = {sv.x, sv.y, sv.z, sv.w};
+  float acc[kTiles][4];
 #pragma unroll
-      for (int q = 0; q < kColsPerThread; ++q) {
-        a[q] += xr * cvs[q];
-        bs[q] += xi * svs[q];
-        c[q] += xr * svs[q];
-        d[q] += xi * cvs[q];
+  for (int nt = 0; nt < kTiles; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const int row = warp * 16 + g;     // block-local frame of c0/c1
+  const int e0 = row * hop;          // its first sample; row + 8: c2/c3
+  const int e1 = (row + 8) * hop;
+  const int nchunks = steps / kChunkSteps;
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      load_stage(ch + 1, (ch + 1) & 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                 // stage ch (and the samples) visible
+    const uint2* bs = bbuf + (ch & 1) * kStage;
+#pragma unroll
+    for (int ks = 0; ks < kChunkSteps; ++ks) {
+      const int j = (ch * kChunkSteps + ks) * 8 + 2 * t;
+      const float w0 = __ldg(window + j);
+      const float w1 = __ldg(window + j + 1);
+      const float4 x0 =
+          *reinterpret_cast<const float4*>(samples + padded(e0 + j));
+      const float4 x1 =
+          *reinterpret_cast<const float4*>(samples + padded(e1 + j));
+      uint32_t a[4];
+      a[0] = pack_bf16(__fmul_rn(x0.x, w0), __fmul_rn(x0.z, w1));  // re, g
+      a[1] = pack_bf16(__fmul_rn(x1.x, w0), __fmul_rn(x1.z, w1));  // re, g+8
+      a[2] = pack_bf16(__fmul_rn(x0.y, w0), __fmul_rn(x0.w, w1));  // im, g
+      a[3] = pack_bf16(__fmul_rn(x1.y, w0), __fmul_rn(x1.w, w1));  // im, g+8
+#pragma unroll
+      for (int nt = 0; nt < kTiles; ++nt) {
+        const uint2 b = bs[(ks * NT + nw * kTiles + nt) * 32 + lane];
+        mma_bf16(acc[nt], a, b.x, b.y);
       }
     }
+    __syncthreads();                 // stage ch consumed before reuse
   }
-  const int frame = frame0 + f;
-  if (frame >= n_ffts) return;
-  float* orow = out + (static_cast<size_t>(w) * n_ffts + frame) * ncols;
+
+  const int fa = frame0 + row;
+  const int fb = fa + 8;
+  float* ow = out + static_cast<size_t>(w) * n_ffts * ncols;
 #pragma unroll
-  for (int q = 0; q < kColsPerThread; ++q) {
-    const int col = col0 + g * kColsPerThread + q;
+  for (int nt = 0; nt < kTiles; ++nt) {
+    const int col = (nb * NT + nw * kTiles + nt) * 4 + t;
     if (col < ncols) {
-      const float re = a[q] - bs[q];
-      const float im = c[q] + d[q];
-      orow[col] = re * re + im * im;
+      if (fa < n_ffts)
+        ow[static_cast<size_t>(fa) * ncols + col] =
+            acc[nt][0] * acc[nt][0] + acc[nt][1] * acc[nt][1];
+      if (fb < n_ffts)
+        ow[static_cast<size_t>(fb) * ncols + col] =
+            acc[nt][2] * acc[nt][2] + acc[nt][3] * acc[nt][3];
     }
   }
+}
+
+size_t smem_bytes(int size, int hop, int nt) {
+  return sizeof(float2) * sample_slots(size, hop) +
+         sizeof(uint2) * 2 * kChunkSteps * nt * 32;
+}
+
+template <int NT>
+int launch(const float* z, int B, int fl, int n_ffts, int size, int hop,
+           const float* window, const uint16_t* bfrag, int n_blocks,
+           int ncols, float* out, cudaStream_t stream) {
+  const size_t smem = smem_bytes(size, hop, NT);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t granted = 0;      // the attribute is set once per size
+  if (smem > granted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stft_power_mma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    granted = smem;
+  }
+  const dim3 blocks((n_ffts + kFrames - 1) / kFrames, n_blocks, B);
+  stft_power_mma<NT><<<blocks, kThreads, smem, stream>>>(
+      reinterpret_cast<const float2*>(z), fl, n_ffts, size, hop, window,
+      reinterpret_cast<const uint2*>(bfrag), ncols, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
+// Dynamic shared memory of one block, in bytes.
+int uwspr_stft_power_smem(int size, int hop, int nt) {
+  return static_cast<int>(smem_bytes(size, hop, nt));
+}
+
 // z: (B, fl) complex64 as interleaved (re, im) f32 pairs; window: (size,)
-// f32; cosm, sinm: (size, ncols) bf16, the caller's column window of the
-// shifted DFT matrices; out: (B, n_ffts, ncols) f32, written. Launches on
-// `stream`; returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue without launching when the staged span does not
-// fit in shared memory).
+// f32; bfrag: the B fragments (n_blocks, size/8, nt, 32, 4) bf16 of
+// ops/stft.py::dft_fragments for the caller's column window; out:
+// (B, n_ffts, ncols) f32, written. nt, the n8 tiles per block, is 4, 8, 12
+// or 16. Launches on `stream`; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue without launching for shapes the kernel does not
+// take: size not a multiple of 32, odd hop, or too much shared memory).
 int uwspr_stft_power(const float* z, int B, int fl, int n_ffts, int size,
-                     int hop, const float* window, const uint16_t* cosm,
-                     const uint16_t* sinm, int ncols, float* out,
+                     int hop, const float* window, const uint16_t* bfrag,
+                     int nt, int n_blocks, int ncols, float* out,
                      void* stream) {
-  const size_t dyn = sizeof(float2) *
-                     static_cast<size_t>((kFrames - 1) * hop + size);
-  if (size < 1 || hop < 1 || ncols < 1 || dyn + kStaticSmem > 48 * 1024)
+  if (size < 32 || size % (8 * kChunkSteps) != 0 || hop < 2 || hop % 2 ||
+      ncols < 1 || ncols > n_blocks * nt * 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 0 && n_ffts > 0) {
-    const dim3 blocks((n_ffts + kFrames - 1) / kFrames,
-                      (ncols + kCols - 1) / kCols, B);
-    stft_power_kernel<<<blocks, kThreads, dyn,
-                        static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float2*>(z), fl, n_ffts, size, hop, window,
-        reinterpret_cast<const __nv_bfloat16*>(cosm),
-        reinterpret_cast<const __nv_bfloat16*>(sinm), ncols, out);
+  if (B <= 0 || n_ffts <= 0) return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nt) {
+    case 4:
+      return launch<4>(z, B, fl, n_ffts, size, hop, window, bfrag, n_blocks,
+                       ncols, out, s);
+    case 8:
+      return launch<8>(z, B, fl, n_ffts, size, hop, window, bfrag, n_blocks,
+                       ncols, out, s);
+    case 12:
+      return launch<12>(z, B, fl, n_ffts, size, hop, window, bfrag,
+                        n_blocks, ncols, out, s);
+    case 16:
+      return launch<16>(z, B, fl, n_ffts, size, hop, window, bfrag,
+                        n_blocks, ncols, out, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -33,17 +33,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from uwspr_tpu.config import CoarseConfig, DemodConfig
-from uwspr_tpu.models import slm
-from uwspr_tpu.protocol.constants import (
+from uwspr_tpu_torch.coarse.search import MODE_NONLINEAR, Candidates
+from uwspr_tpu_torch.config import CoarseConfig, DemodConfig
+from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.models import slm
+from uwspr_tpu_torch.ops.probe import probe_powers
+from uwspr_tpu_torch.protocol.constants import (
     SAMPLE_RATE,
     SYNC_VECTOR,
     TONE_OFFSETS,
     TONE_SPACING,
 )
-from uwspr_tpu_torch.coarse.search import MODE_NONLINEAR, Candidates
-from uwspr_tpu_torch.device import resolve_device
-from uwspr_tpu_torch.ops.probe import probe_powers
 
 _DT = 1.0 / SAMPLE_RATE
 _TONES_HZ = (TONE_OFFSETS * TONE_SPACING).astype(np.float32)  # (4,)
@@ -342,6 +342,11 @@ class FineSync:
                  jiggles: np.ndarray | None = None):
         self.cfg = demod_cfg or DemodConfig()
         self.coarse = coarse_cfg or CoarseConfig()
+        for cfg, cls in ((self.cfg, DemodConfig), (self.coarse, CoarseConfig)):
+            if not isinstance(cfg, cls):
+                raise TypeError(f"expected uwspr_tpu_torch.config."
+                                f"{cls.__name__}, got {type(cfg).__module__}."
+                                f"{type(cfg).__name__}")
         self.device = resolve_device(device)
         self._jiggles = (jiggle_offsets(self.cfg.n_jiggles, self.cfg.iifac)
                          if jiggles is None

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from uwspr_tpu.protocol.constants import N_CODED_BITS, POLY1, POLY2
+from uwspr_tpu_torch.protocol.constants import N_CODED_BITS, POLY1, POLY2
 from uwspr_tpu_torch.utils import cuda_build
 
 # launches of the CUDA kernel / calls of the plain version, in this process

@@ -1,22 +1,21 @@
 """Fano backends of the host engine: ``PipelineConfig.fano_backend`` ->
 decoder.
 
-    "native"  the JAX package's multithreaded C++ decoder
-              (uwspr_tpu/fec/native/fano_native.cc), compiled with g++ into
-              the port's build directory and loaded with ctypes;
+    "native"  the multithreaded C++ decoder ``fec/fano_native.cc`` (the
+              port's own copy of uwspr_tpu/fec/native/fano_native.cc),
+              compiled with g++ into the port's build directory and loaded
+              with ctypes;
     "jax"     the port's batched decoder ``fec.fano.fano_decode_batch`` on
               the decoder's device: the CUDA kernel on a card, the plain
               lockstep version on the CPU;
-    "ref"     the pure-Python reference uwspr_tpu.fec.fano_ref.
+    "ref"     the pure-Python reference ``fec.fano_ref``.
 
 All three are bit-exact with each other. Only active lanes are decoded;
 inactive lanes report zeros, as the JAX dispatcher's native and ref
 backends do (uwspr_tpu/fec/__init__.py). Unlike that dispatcher, nothing
 falls back: a failed build raises, and an unknown backend is a ValueError.
-The native library is never the one that may sit beside the source (it may
-have been built for another CPU with -march=native); it is built from the
-source into ``cuda_build.BUILD_DIR`` under a name that carries a digest of
-the source and the flags.
+The native library is built from the source into ``cuda_build.BUILD_DIR``
+under a name that carries a digest of the source and the flags.
 """
 
 from __future__ import annotations
@@ -31,12 +30,12 @@ import threading
 import numpy as np
 import torch
 
-from uwspr_tpu.protocol.constants import FANO_METTAB, N_CODED_BITS
 from uwspr_tpu_torch.fec.fano import fano_decode_batch
+from uwspr_tpu_torch.fec.fano_ref import fano_decode
+from uwspr_tpu_torch.protocol.constants import FANO_METTAB, N_CODED_BITS
 from uwspr_tpu_torch.utils.cuda_build import BUILD_DIR
 
-NATIVE_SOURCE = (pathlib.Path(__file__).resolve().parents[2] / "uwspr_tpu"
-                 / "fec" / "native" / "fano_native.cc")
+NATIVE_SOURCE = pathlib.Path(__file__).resolve().parent / "fano_native.cc"
 GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 _lock = threading.Lock()
@@ -98,7 +97,6 @@ def _port_decode(symbols, mettab, delta, maxcycles, device):
 
 
 def _ref_decode(symbols, mettab, delta, maxcycles, device):
-    from uwspr_tpu.fec.fano_ref import fano_decode
     rs = [fano_decode(s, mettab, delta=delta, maxcycles=maxcycles)
           for s in symbols]
     return (np.array([r.success for r in rs], bool),

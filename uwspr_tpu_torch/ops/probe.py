@@ -14,7 +14,11 @@ and both phases are taken at the window-local index j' = b + k. Samples
 outside 0 < n < N read as zero (the reference's correlation guard).
 
 ``probe_powers`` is the entry point. For CUDA tensors it launches
-``csrc/probe_powers.cu`` and counts the launch in ``KERNEL_LAUNCHES``; for
+``csrc/probe_powers.cu`` and counts the launch in ``KERNEL_LAUNCHES``. The
+kernel builds, per candidate and tile of symbols, the derotated window and
+the tone bank once in shared memory and lets every lag read its slice of
+them (neither depends on the lag); ``kernel_tiling`` picks its symbols per
+block and block size. For
 CPU tensors it runs ``probe_powers_plain``, a transcription of
 ``_probe_powers_xla`` (finesync.py:103-154): one (162, 1024) overlapped
 window per candidate, a masked tone bank and one complex64 product per
@@ -26,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uwspr_tpu.protocol.constants import (
+from uwspr_tpu_torch.protocol.constants import (
     SAMPLE_RATE,
     TONE_OFFSETS,
     TONE_SPACING,
@@ -41,6 +45,8 @@ PAD = 4096              # zeros in front of the window (negative lags)
 _W = 1024               # aligned window width covering every lag of a stage
 _FRAME = 162 * 256
 _MAX_F = 16             # probe freqs per candidate the kernel takes
+_MAX_HALF = 32          # kernel symbols per block, halved (16 at one freq)
+_ROW = 129              # the kernel's padded shared-memory row (float2)
 # -2*pi/fs rounded to f32, as the JAX code's weak-typed Python float
 PHASE = np.float32(-2.0 * np.pi * (1.0 / SAMPLE_RATE))
 TONES_HZ = (TONE_OFFSETS * TONE_SPACING).astype(np.float32)      # (4,)
@@ -64,6 +70,27 @@ def lag_offsets(lags: torch.Tensor, n: int
         max=n_padded - (_FRAME + _W))
     b = torch.clamp(starts - base[:, None], 0, _W - 256)
     return base, b
+
+
+def kernel_tiling(n_lags: int, n_freqs: int) -> tuple[int, int, int]:
+    """The probe kernel's (symbols per block S, threads per block, dynamic
+    shared memory in bytes) for L lags and F freqs. Each thread owns one
+    (lag, freq) and 2 symbols, so threads cover L * F * S / 2; S is as large
+    as keeps that near 256 threads (at most 64 symbols), then evened out
+    over the 162 symbols' tiles. With one freq the bank is small and the
+    derotated window's fill dominates, and tiles of at most 32 symbols ran
+    faster (scripts/torch_probe_tiling.py). A block has at least 128
+    threads, which all build the shared derotated window and bank (the
+    host engine's drift stage, L = F = 1, has 14 outputs per block)."""
+    lf = n_lags * n_freqs
+    half = max(1, min(_MAX_HALF // 2 if n_freqs == 1 else _MAX_HALF,
+                      256 // lf))
+    tiles = -(-162 // (2 * half))
+    half = -(-(-(-162 // tiles)) // 2)
+    threads = max(128, -(-lf * half // 32) * 32)
+    if threads > 1024:
+        raise ValueError(f"probe kernel takes L * F <= 1024, got {lf}")
+    return 2 * half, threads, 8 * (2 * half + 4 * n_freqs) * _ROW
 
 
 def _check(z_ri, lags, freqs, drift_sym, n_lags):
@@ -98,10 +125,9 @@ def probe_powers(z_ri: torch.Tensor, lags: torch.Tensor, freqs: torch.Tensor,
     if not 1 <= F <= _MAX_F:
         raise ValueError(f"probe_powers kernel takes 1..{_MAX_F} freqs, "
                          f"got {F}")
+    S, threads, _ = kernel_tiling(n_lags, F)
     N = z_ri.shape[1]
-    base, b = lag_offsets(lags, N)
-    off = (base[:, None] + b - PAD).to(torch.int32).contiguous()
-    b32 = b.to(torch.int32).contiguous()
+    lg = lags.to(torch.int32).contiguous()     # clipped in the kernel
     z = z_ri.contiguous()
     fq = freqs.to(torch.float32).contiguous()
     dr = drift_sym.to(torch.float32).contiguous()
@@ -109,8 +135,8 @@ def probe_powers(z_ri: torch.Tensor, lags: torch.Tensor, freqs: torch.Tensor,
                       device=z.device)
     lib = cuda_build.load_library()
     code = lib.uwspr_probe_powers(
-        z.data_ptr(), N, off.data_ptr(), b32.data_ptr(), fq.data_ptr(),
-        dr.data_ptr(), C, n_lags, F, float(PHASE), out.data_ptr(),
+        z.data_ptr(), N, lg.data_ptr(), fq.data_ptr(), dr.data_ptr(), C,
+        n_lags, F, S, threads, float(PHASE), out.data_ptr(),
         torch.cuda.current_stream(z.device).cuda_stream)
     cuda_build.check_launch("uwspr_probe_powers", code)
     KERNEL_LAUNCHES += 1
@@ -149,5 +175,5 @@ def probe_powers_plain(z_ri: torch.Tensor, lags: torch.Tensor,
 
 
 __all__ = ["KERNEL_LAUNCHES", "PAD", "PHASE", "PLAIN_CALLS", "TONES_HZ",
-           "lag_offsets", "probe_powers", "probe_powers_plain",
+           "kernel_tiling", "lag_offsets", "probe_powers", "probe_powers_plain",
            "reset_counters"]

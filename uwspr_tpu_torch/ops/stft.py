@@ -6,10 +6,13 @@ half-sine windowed 512-point transforms stepped by half symbols, DC at
 column ``size/2`` (lib/FDR_impl.cc:222-254), batched over leading dims.
 
 ``impl="pallas"`` replaces uwspr_tpu/ops/stft_pallas.py::stft_power_pallas.
-For CUDA tensors it launches ``csrc/stft_power.cu``, which builds the
-frames in shared memory, windows them, runs the DFT as bf16 x bf16 products
-accumulated in f32 and squares, so frames never reach device memory; the
-launch is counted in ``KERNEL_LAUNCHES``. For CPU tensors it runs the plain
+For CUDA tensors it launches ``csrc/stft_power.cu``, which runs the DFT as
+one bf16 GEMM on the tensor cores, D = [fr | fi] . [[C, S], [-S, C]] with
+f32 sums, builds the windowed frames in registers from samples staged in
+shared memory and squares adjacent (re, im) columns of D, so frames never
+reach device memory; the launch is counted in ``KERNEL_LAUNCHES``. Its B
+operand is built once per decoder by ``dft_fragments``, in the kernel's
+fragment order. For CPU tensors it runs the plain
 version with the same numerics, ``impl="matmul_bf16"`` (window applied in
 f32, frames and cos/sin rounded to bf16, f32 accumulation), counted in
 ``PLAIN_CALLS``.
@@ -68,21 +71,64 @@ def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         b.to(torch.bfloat16).float())
 
 
+def mma_tiles(ncols: int) -> int:
+    """n8 tiles of the kernel's GEMM per block for ``ncols`` output columns
+    (2 * ncols GEMM columns): 4, 8, 12 or 16 (a block's 16 frames x 128
+    columns of accumulators per warp at most)."""
+    tiles = -(-2 * ncols // 8)
+    return min(16, -(-tiles // 4) * 4)
+
+
+def dft_fragments(cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The STFT kernel's B operand from the (size, ncols) cos/sin matrices:
+    bf16 (n_blocks, size/8, nt, 32, 4), nt = mma_tiles(ncols).
+
+    B' = [[C, S], [-S, C]] with its columns interleaved as (re, im) pairs of
+    each output column (GEMM column 2c is re of column c, 2c+1 its im) and
+    its K rows taken in k16 steps: rows 16s..16s+7 are [C, S] of DFT rows
+    8s..8s+7 (they meet the real parts of the frame), rows 16s+8..16s+15
+    [-S, C] of the same DFT rows (the imaginary parts). Columns past
+    2 * ncols are zero. Entry [nb, s, i, lane, m] is B'[16s + k, n] with
+    n = 8 * (nb * nt + i) + lane // 4 and k = (2t, 2t+1, 2t+8, 2t+9)[m],
+    t = lane % 4: the (b0, b1) registers of an mma.sync m16n8k16 B fragment
+    of n8 tile i in k16 step s, as lane ``lane`` reads them."""
+    size, ncols = cos.shape
+    if size % 8:
+        raise ValueError(f"DFT size {size} is not a multiple of 8")
+    nt = mma_tiles(ncols)
+    n_blocks = -(-2 * ncols // (8 * nt))
+    steps = size // 8
+    cb = cos.to(torch.bfloat16).cpu().reshape(steps, 8, ncols)
+    sb = sin.to(torch.bfloat16).cpu().reshape(steps, 8, ncols)
+    B = torch.zeros((steps, 16, n_blocks * nt * 8), dtype=torch.bfloat16)
+    B[:, :8, 0:2 * ncols:2] = cb
+    B[:, :8, 1:2 * ncols:2] = sb
+    B[:, 8:, 0:2 * ncols:2] = -sb          # negation is exact in bf16
+    B[:, 8:, 1:2 * ncols:2] = cb
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    k = torch.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], dim=-1)
+    n = (8 * (torch.arange(n_blocks)[:, None, None] * nt
+              + torch.arange(nt)[None, :, None]) + g)           # (nb, nt, 32)
+    frag = B[torch.arange(steps)[None, :, None, None, None],
+             k[None, None, None], n[:, None, :, :, None]]
+    return frag.contiguous()                # (nb, steps, nt, 32, 4)
+
+
 def stft_constants(size: int, col_window: tuple[int, int] | None,
                    device: torch.device) -> dict[str, torch.Tensor]:
-    """The half-sine window and the column-windowed cos/sin DFT matrices on
-    ``device``, in float32 and (for the kernel) rounded to bf16.
+    """The half-sine window, the column-windowed cos/sin DFT matrices in
+    float32 and (for the kernel) their bf16 GEMM fragments
+    (``dft_fragments``), on ``device``.
 
     A caller that runs the STFT repeatedly builds these once: computing
     them per call costs host time, and each host-to-device copy waits for
     the device to drain."""
     C, S = dft_matrices(size, col_window)
-    cos = torch.from_numpy(C).to(device)
-    sin = torch.from_numpy(S).to(device)
+    cos, sin = torch.from_numpy(C), torch.from_numpy(S)
     return {"window": torch.from_numpy(half_sine_window(size)).to(device),
-            "cos": cos, "sin": sin,
-            "cos_bf16": cos.to(torch.bfloat16),
-            "sin_bf16": sin.to(torch.bfloat16)}
+            "cos": cos.to(device), "sin": sin.to(device),
+            "frag": dft_fragments(cos, sin).to(device)}
 
 
 def stft_power_core(z: torch.Tensor, *, n_ffts: int = 348, size: int = 512,
@@ -154,11 +200,13 @@ def stft_power_kernel(z: torch.Tensor, *, n_ffts: int, size: int, hop: int,
         raise ValueError(f"stft_power kernel: unsupported device {z.device}")
     if z.dtype != torch.complex64:
         raise ValueError(f"stft_power kernel takes complex64, got {z.dtype}")
-    cos, sin = consts["cos_bf16"], consts["sin_bf16"]
-    ncols = cos.shape[1]
-    if tuple(cos.shape) != (size, ncols) or sin.shape != cos.shape:
-        raise ValueError(f"DFT matrices {tuple(cos.shape)} do not match "
-                         f"size {size}")
+    ncols = consts["cos"].shape[1]
+    frag = consts["frag"]
+    n_blocks, steps, nt = frag.shape[:3]
+    if (steps * 8 != size or tuple(frag.shape[3:]) != (32, 4)
+            or frag.dtype != torch.bfloat16 or nt != mma_tiles(ncols)):
+        raise ValueError(f"DFT fragments {tuple(frag.shape)} do not match "
+                         f"size {size}, {ncols} columns")
     lead = z.shape[:-1]
     fl = z.shape[-1]
     zi = torch.view_as_real(z.reshape(-1, fl).contiguous())   # (B, fl, 2)
@@ -169,8 +217,8 @@ def stft_power_kernel(z: torch.Tensor, *, n_ffts: int, size: int, hop: int,
     lib = cuda_build.load_library()
     code = lib.uwspr_stft_power(
         zi.data_ptr(), B, fl, n_ffts, size, hop, window.data_ptr(),
-        cos.contiguous().data_ptr(), sin.contiguous().data_ptr(), ncols,
-        out.data_ptr(), torch.cuda.current_stream(z.device).cuda_stream)
+        frag.contiguous().data_ptr(), nt, n_blocks, ncols, out.data_ptr(),
+        torch.cuda.current_stream(z.device).cuda_stream)
     cuda_build.check_launch("uwspr_stft_power", code)
     KERNEL_LAUNCHES += 1
     return out.reshape(lead + (n_ffts, ncols))
@@ -190,6 +238,7 @@ def stft_power(z: np.ndarray, *, n_ffts: int = 348, size: int = 512,
                            size=size, hop=hop, impl="fft", consts=consts)
 
 
-__all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS", "bf16_matmul", "dft_matrices",
-           "half_sine_window", "reset_counters", "stft_constants",
-           "stft_power", "stft_power_core", "stft_power_kernel"]
+__all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS", "bf16_matmul", "dft_fragments",
+           "dft_matrices", "half_sine_window", "mma_tiles", "reset_counters",
+           "stft_constants", "stft_power", "stft_power_core",
+           "stft_power_kernel"]

@@ -31,15 +31,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uwspr_tpu.config import PipelineConfig
-from uwspr_tpu.protocol.constants import (
+from uwspr_tpu_torch.coarse.search import DriftModelBank, build_drift_models
+from uwspr_tpu_torch.config import PipelineConfig
+from uwspr_tpu_torch.demod.finesync import jiggle_offsets
+from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.protocol.constants import (
     FANO_METTAB,
     INTERLEAVE_PERM,
     SYNC_VECTOR,
 )
-from uwspr_tpu_torch.coarse.search import DriftModelBank, build_drift_models
-from uwspr_tpu_torch.demod.finesync import jiggle_offsets
-from uwspr_tpu_torch.device import resolve_device
 
 # name -> (numpy dtype kind the value must have, torch dtype on the device)
 STATE_SPEC = {

@@ -29,15 +29,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from uwspr_tpu.config import PipelineConfig
-from uwspr_tpu.protocol.constants import FANO_METTAB, deinterleave
-from uwspr_tpu.protocol.messages import HashTable, Unpacked, unpack_message
-from uwspr_tpu.utils.timers import StageTimers
 from uwspr_tpu_torch.coarse.search import MODE_NONLINEAR, CoarseSearch
+from uwspr_tpu_torch.config import PipelineConfig
 from uwspr_tpu_torch.demod.finesync import FineSync
 from uwspr_tpu_torch.device import exact_f32, resolve_device
 from uwspr_tpu_torch.fec.host import check_backend, fano_decode_batch_host
+from uwspr_tpu_torch.fec.osd import accept_osd
+from uwspr_tpu_torch.io.c2file import read_c2
 from uwspr_tpu_torch.params import host_bank, host_state_numpy
+from uwspr_tpu_torch.protocol.constants import FANO_METTAB, deinterleave
+from uwspr_tpu_torch.protocol.messages import (HashTable, Unpacked,
+                                              unpack_message)
+from uwspr_tpu_torch.utils.timers import StageTimers
 
 
 @dataclass
@@ -81,6 +84,10 @@ class WindowDecoder:
                  timers: StageTimers | None = None,
                  state: dict[str, np.ndarray] | None = None):
         self.config = config or PipelineConfig()
+        if not isinstance(self.config, PipelineConfig):
+            raise TypeError(f"config must be uwspr_tpu_torch.config."
+                            f"PipelineConfig, got {type(config).__module__}."
+                            f"{type(config).__name__}")
         self.device = resolve_device(device)
         bank, jiggles = host_bank(state if state is not None
                                   else host_state_numpy(self.config))
@@ -174,11 +181,10 @@ class WindowDecoder:
     def _osd_fallback(self, c, cands, ref, flat_syms, gate, sync2):
         """Ordered-statistics decode of candidate c's best gated lanes when
         every Fano retry failed (decoder.py:149-182): the calibrated
-        acceptance rule of uwspr_tpu.fec.osd.accept_osd, then protocol
+        acceptance rule of fec.osd.accept_osd, then protocol
         unpacking; the spot carries the OSD order."""
         if not gate[c].any():
             return None
-        from uwspr_tpu.fec.osd import accept_osd
         J = gate.shape[1]
         j, payload = accept_osd(flat_syms[c * J:(c + 1) * J], gate[c],
                                 sync2[c], self.config.demod)
@@ -195,7 +201,6 @@ class WindowDecoder:
 def decode_c2_file(path, config: PipelineConfig | None = None, *,
                    device: str | torch.device) -> DecodeResult:
     """Decode one .c2 capture on ``device``."""
-    from uwspr_tpu.io.c2file import read_c2
     return WindowDecoder(config, device=device)(read_c2(path).samples)
 
 

@@ -31,12 +31,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from uwspr_tpu.config import PipelineConfig
 from uwspr_tpu_torch.coarse.search import (
     coarse_score_grid,
     max_peaks,
     smoothed_snr_spectrum,
 )
+from uwspr_tpu_torch.config import PipelineConfig
 from uwspr_tpu_torch.demod.finesync import (
     make_shared_probe_lanes,
     probe_constants,
@@ -49,6 +49,7 @@ from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
 from uwspr_tpu_torch.params import state_from_numpy, state_numpy
+from uwspr_tpu_torch.protocol.messages import unpack_message
 
 _NBYTES = 10        # Fano harvest bytes; the payload is the first 7
 
@@ -80,7 +81,12 @@ class DeviceDecoderOutput:
 
 
 def check_slice(config: PipelineConfig) -> None:
-    """Raise NotImplementedError for configurations this port does not run."""
+    """Raise NotImplementedError for configurations this port does not run
+    (TypeError for a config that is not the port's own class)."""
+    if not isinstance(config, PipelineConfig):
+        raise TypeError(f"config must be uwspr_tpu_torch.config."
+                        f"PipelineConfig, got {type(config).__module__}."
+                        f"{type(config).__name__}")
     c, d = config.coarse, config.demod
     if d.cand_compact_lanes <= 0:
         raise NotImplementedError(
@@ -546,7 +552,6 @@ class DeviceDecoder:
     @staticmethod
     def messages(out: DeviceDecoderOutput, hashtable=None) -> list[str]:
         """Decoded message texts of one window's output."""
-        from uwspr_tpu.protocol.messages import unpack_message
         msgs = []
         for c in np.flatnonzero(out.success):
             u = unpack_message(bytes(out.payload[c]), hashtable)

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by one nvcc call into a shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds):
+Every ``csrc/*.cu`` file is compiled by its own nvcc call, all started
+together, and the objects are linked into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library lands in ``$UWSPR_TORCH_BUILD_DIR``, by default
 ``build/uwspr_tpu_torch/`` at the repository root, and its name carries a
@@ -23,6 +25,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -32,8 +35,9 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = pathlib.Path(os.environ.get(
     "UWSPR_TORCH_BUILD_DIR", PACKAGE_DIR.parent / "build" / "uwspr_tpu_torch"))
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _C = ctypes
 # C entry points of csrc/*.cu and their ctypes signatures. Every pointer and
@@ -46,12 +50,15 @@ _SIGNATURES = {
                           _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p],
+    "uwspr_probe_powers_smem": [_C.c_int, _C.c_int],
     "uwspr_probe_powers": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
-                           _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
-                           _C.c_int, _C.c_float, _C.c_void_p, _C.c_void_p],
+                           _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                           _C.c_int, _C.c_int, _C.c_float, _C.c_void_p,
+                           _C.c_void_p],
+    "uwspr_stft_power_smem": [_C.c_int, _C.c_int, _C.c_int],
     "uwspr_stft_power": [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-                         _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-                         _C.c_int, _C.c_void_p, _C.c_void_p],
+                         _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_int,
+                         _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p],
 }
 
 _lock = threading.Lock()
@@ -89,6 +96,20 @@ def _digest(nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first failure; return
+    their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build_library() -> pathlib.Path:
     """Compile csrc/*.cu unless a library of the same sources exists."""
     nvcc = _nvcc()
@@ -97,19 +118,71 @@ def build_library() -> pathlib.Path:
         build_info.update(library=str(lib), seconds=0.0, log="(cached)")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in kernel_sources()]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in kernel_sources()]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(kernel_sources(), objs)])
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
-    build_info.update(library=str(lib), seconds=seconds,
-                      log=proc.stdout + proc.stderr)
+    for o in objs:
+        o.unlink()
+    build_info.update(library=str(lib), seconds=seconds, log=log)
     return lib
+
+
+def kernel_resources(log: str) -> dict[str, dict]:
+    """ptxas -v output -> {entry function: {"registers", "smem_bytes",
+    "spill_bytes"}} (static shared memory; dynamic shared memory is set at
+    launch)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "smem_bytes": 0,
+                         "spill_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
+def sass_counts(library: str | os.PathLike,
+                prefix: str) -> dict[str, dict[str, int]]:
+    """{kernel symbol: {opcode: count}} of the SASS instructions in
+    ``library`` whose opcode starts with ``prefix``, read with cuobjdump."""
+    cuobjdump = pathlib.Path(_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(library)],
+                          capture_output=True, text=True, check=True)
+    return parse_sass(proc.stdout, prefix)
+
+
+def parse_sass(sass: str, prefix: str) -> dict[str, dict[str, int]]:
+    """The counting of sass_counts on cuobjdump -sass text."""
+    out, name = {}, None
+    pat = re.compile(rf"\*/\s+(?:@!?U?P\w+\s+)?({re.escape(prefix)}[\w.]*)")
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = pat.search(line) if name is not None else None
+        if m:
+            out[name][m.group(1)] = out[name].get(m.group(1), 0) + 1
+    return out
 
 
 def load_library() -> ctypes.CDLL:
@@ -132,6 +205,6 @@ def check_launch(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
 
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_info",
-           "build_library", "check_launch", "kernel_sources",
-           "load_library"]
+__all__ = ["ARCH_FLAGS", "BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "build_info",
+           "build_library", "check_launch", "kernel_resources",
+           "kernel_sources", "load_library", "parse_sass", "sass_counts"]
