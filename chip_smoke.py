@@ -13,17 +13,24 @@ Phases, each raising on failure (nothing is caught):
    (uwspr_tpu_torch/fec/fano_native.cc) with g++, into the port's build
    directory; prints each kernel's registers, static shared memory and
    spills (ptxas -v; none may spill), the probe and STFT kernels' dynamic
-   shared memory at the paths' shapes, and the tensor-core (HMMA)
-   instructions of the STFT kernel read from the library with cuobjdump;
+   shared memory at the paths' shapes, and, read from the library with
+   cuobjdump, the tensor-core (HMMA) instructions of the STFT kernel and
+   every kernel's local-memory loads and stores (LDL, STL; none may occur
+   in the selection and Fano kernels);
 3. selection kernel against its plain version: real-shaped
    (1664, 5, 26, 126) grids from the scene's coarse stage and from random
    data with NaNs and negatives, the adversarial cases of
-   tests/test_select_pallas.py and an all-linear bank; best bitwise equal,
-   index equal;
+   tests/test_select_pallas.py, lanes whose accepts step on -0, +0,
+   subnormals, infinities and quotients that pass the threshold only
+   before rounding (special_lanes), and an all-linear bank; best bitwise
+   equal, index equal; then, with a bank that is not linear-first (the
+   default flags shuffled, which the plain version refuses), against a
+   literal numpy scan of 256 scene lanes, the adversarial lanes, 64 random
+   lanes and the special lanes;
 4. Fano kernel against its plain version at small budgets (clean, noisy,
-   all-timeout and inactive lanes, a lane count off the block size) and
-   against the native C++ decoder at the full 10,000-cycle budget,
-   including a block of 128 lanes that all time out; bit-exact;
+   all-timeout and inactive lanes) and against the native C++ decoder at
+   the full 10,000-cycle budget, including a block of 128 lanes that all
+   time out; bit-exact;
 5. probe kernel against its plain version at the host engine's shapes on
    one scene window (C = 200 candidates of the scene's coarse search): the
    (L=5, F=1) lag stage, the (L=1, F=5) freq stage, the (L=1, F=1) drift
@@ -59,7 +66,12 @@ Phases, each raising on failure (nothing is caught):
    the least time the card could take: the larger of its bytes over the
    HBM rate and its operations over their peak rate (H100 SXM data sheet,
    700 W), and for Fano the longest lane's forward looks times one
-   shared-memory round trip.
+   shared-memory round trip. Selection is also timed at the host engine's
+   (200, 5, 26, 126) grid of the scene's first window, and Fano at
+   maxcycles 10,000 on a block of 128 lanes of uniform noise that all run
+   the full budget and on a mixed chunk of 192 clean lanes and 64 such
+   timeouts (held to the native decoder; the plain version would take
+   hours there, so it is not timed).
 
 Prints a JSON line of per-kernel results (launches on the main path,
 times, bound, library call) before the last line, and as the last line
@@ -176,6 +188,18 @@ def phase_build():
         f"kernels: {json.dumps(mma)}")
     require(len(mma) == 4 and all(sum(v.values()) > 0 for v in mma.values()),
             "the STFT kernels carry no HMMA instruction")
+    # local memory: none in the selection and Fano kernels, whose state
+    # lives in registers and shared memory; the probe kernel's sincosf
+    # keeps a small array there for its slow-path range reduction
+    ldl = cuda_build.sass_counts(info["library"], "LDL")
+    stl = cuda_build.sass_counts(info["library"], "STL")
+    local = {k: sum(v.values()) + sum(stl.get(k, {}).values())
+             for k, v in ldl.items()}
+    log(f"[build] local-memory instructions (LDL + STL, cuobjdump -sass): "
+        f"{json.dumps(local)}")
+    require(all(n == 0 for k, n in local.items()
+                if "select_best" in k or "fano" in k),
+            "the selection or Fano kernel uses local memory")
     native = load_native_fano()
     log(f"[build] native Fano decoder built from "
         f"uwspr_tpu_torch/fec/fano_native.cc: {native._name}")
@@ -247,6 +271,8 @@ def phase_select(dec, ri_cuda):
     cases["adversarial"] = (torch.from_numpy(adv).cuda(), is_nl)
     cases["all_linear"] = (torch.from_numpy(rand[:333]).cuda(),
                            torch.zeros_like(is_nl))
+    spec, _ = special_lanes(is_nl.cpu().numpy())
+    cases["special_values"] = (torch.from_numpy(spec).cuda(), is_nl)
     max_err = 0.0
     for name, (g, nl) in cases.items():
         bk, ik = sel.select_best(g, nl, threshold=10.0)
@@ -258,7 +284,100 @@ def phase_select(dec, ri_cuda):
         max_err = max(max_err, float((bk - bp).abs().nan_to_num().max()))
         log(f"[select] {name} {tuple(g.shape)}: kernel == plain "
             f"(best bitwise, idx equal)")
+    # a bank that is not linear-first, against the literal scan
+    shuffled = is_nl.cpu().numpy().copy()
+    np.random.default_rng(4).shuffle(shuffled)
+    shuffled[[31, 32, 63, 64, 95]] = False      # linear on the chunk edges
+    lanes = np.concatenate([scene[:256].cpu().numpy(), adv, rand[:64],
+                            special_lanes(shuffled)[0]])
+    bk, ik = sel.select_best(torch.from_numpy(lanes).cuda(),
+                             torch.from_numpy(shuffled).cuda(),
+                             threshold=10.0)
+    bs, is_ = literal_scan(lanes, shuffled, 10.0)
+    require(np.array_equal(bk.cpu().numpy().view(np.int32), bs.view(np.int32))
+            and np.array_equal(ik.cpu().numpy(), is_),
+            "select: kernel differs from the literal scan on an unordered "
+            "bank")
+    log(f"[select] unordered bank (linear models at "
+        f"{np.flatnonzero(~shuffled).tolist()}), {len(lanes)} lanes: kernel "
+        f"== literal numpy scan (best bitwise, idx equal)")
     return scene, max_err
+
+
+def literal_scan(grid: np.ndarray, is_nl: np.ndarray, thr: float):
+    """The reference's sequential walk over each lane's (5, lags, M) grid
+    in order (search.py::select_best_scan), vectorised over lanes; f32
+    division is IEEE in numpy as in the kernel."""
+    L, M = grid.shape[0], grid.shape[-1]
+    flat = grid.reshape(L, -1)
+    best = np.full(L, -1e30, np.float32)
+    idx = np.zeros(L, np.int32)
+    thr = np.float32(thr)
+    with np.errstate(all="ignore"):
+        for j in range(flat.shape[1]):
+            v = flat[:, j]
+            upd = (v / best > thr) if is_nl[j % M] else (v > best)
+            best = np.where(upd, v, best)
+            idx = np.where(upd, np.int32(j), idx)
+    return best, idx
+
+
+def near_threshold(thr: float = 10.0, seed: int = 3):
+    """(b, lo, hi), positive floats with lo / b above thr as real numbers
+    but not after f32 rounding (fl(lo / b) == thr) and fl(hi / b) > thr."""
+    from fractions import Fraction
+    rng = np.random.default_rng(seed)
+    t = np.float32(thr)
+    for b in rng.uniform(1, 2, 4096).astype(np.float32):
+        lo = np.nextafter(t * b, np.float32(np.inf))
+        while Fraction(float(lo)) <= Fraction(float(t)) * Fraction(float(b)):
+            lo = np.nextafter(lo, np.float32(np.inf))
+        hi = np.nextafter(lo, np.float32(np.inf))
+        if lo / b == t and hi / b > t:
+            return b, lo, hi
+    raise AssertionError("no near-threshold pair found")
+
+
+def special_lanes(is_nl: np.ndarray, lags: int = 26):
+    """Lanes whose accept chains (threshold 10) step on -0, +0, subnormals,
+    +inf and -inf, and on quotients that pass the threshold only before
+    rounding; every other value is NaN. Each group holds at most one value
+    for a linear model, placed first, then values for nonlinear models, so
+    the chains hold for any bank order. Returns the (5, 5, lags, M) grid
+    and the values the literal scan accepts at threshold 10."""
+    M = is_nl.shape[0]
+    lin = int(np.flatnonzero(~is_nl)[0])
+    nls = np.flatnonzero(is_nl)
+    nls = nls[nls > lin]
+    tiny = np.float32(np.finfo(np.float32).smallest_subnormal)
+    inf = np.float32(np.inf)
+    b, lo, hi = near_threshold()
+    # per lane: {group: (linear value or None, [nonlinear values])}
+    plan = [
+        {0: (np.float32(-0.0), [-tiny, np.float32(5.0), -11 * tiny]),
+         1: (np.float32(0.0), [np.float32(-3.0), np.float32(0.0),
+                               np.float32(-0.0), 2 * tiny]),
+         2: (None, [7 * tiny, inf]),
+         3: (inf, [np.float32(1.0), -inf, inf]),
+         5: (None, [np.float32(3e38), np.float32(-3e38)])},
+        {0: (None, [-inf, np.float32(5.0), -inf]),
+         1: (b, [lo, hi]),
+         4: (None, [lo, np.float32(10) * hi])},
+        {0: (-b, [-lo, -hi]),
+         2: (np.float32(0.0), [tiny, np.float32(-1.0), 7 * tiny])},
+        {0: (inf, [-inf, inf, np.float32(1e30)])},
+        {0: (3 * tiny, [np.float32(3e-44), np.float32(1e-38)]),
+         3: (None, [np.float32(1e-37), np.float32(1e-36)])},
+    ]
+    grid = np.full((len(plan), 5 * lags, M), np.nan, np.float32)
+    for lane, groups in enumerate(plan):
+        for g, (lv, nv) in groups.items():
+            if lv is not None:
+                grid[lane, g, lin] = lv
+            grid[lane, g, nls[:len(nv)]] = nv
+    accepted = [np.float32(-0.0), -tiny, -11 * tiny, np.float32(0.0),
+                2 * tiny, inf, -inf, b, hi, -b, -hi, tiny]
+    return grid.reshape(len(plan), 5, lags, M), accepted
 
 
 # ---------------------------------------------------------------- phase 4
@@ -766,33 +885,58 @@ def entry(name, source, replaces, shape, ms, plain_ms, bnd, library,
             "library_ms": library_ms}
 
 
-def timing_select(dec, scene, card):
+def host_grid(hdec, ri):
+    """The host engine's (200, 5, 26, M) selection grid of the scene's first
+    window, as CoarseSearch builds it before its select_best call."""
+    import torch
+
+    from uwspr_tpu_torch.coarse.search import (coarse_score_grid,
+                                               detect_peaks,
+                                               smoothed_snr_spectrum)
+    from uwspr_tpu_torch.device import exact_f32
+    cs = hdec.coarse
+    cfg = cs.cfg
+    with torch.no_grad(), exact_f32():
+        ps = cs.power_spectrum(ri[0, 0] + 1j * ri[0, 1])
+        sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=cfg.fft_size // 2)
+        _, if0, _ = detect_peaks(sm.cpu().numpy(), cfg)
+        grid = coarse_score_grid(ps[None], torch.from_numpy(if0)[None].cuda(),
+                                 cs._offsets, cs._sign, impl="einsum")[0]
+    return grid.contiguous(), cs._is_nl
+
+
+def timing_select(dec, scene, hdec, ri, card):
     import torch
 
     from uwspr_tpu_torch.ops import select as sel
-    is_nl = dec.state["is_nl"]
     thr = float(dec.config.coarse.threshold)
-    ms, turns, outs = time_turns(
-        [("plain", lambda: sel.select_best_plain(scene, is_nl, threshold=thr)),
-         ("kernel", lambda: sel.select_best(scene, is_nl, threshold=thr))],
-        {"plain": 5, "kernel": 50})
-    (bp, ip), (bk, ik) = outs["plain"], outs["kernel"]
-    require(torch.equal(bk.view(torch.int32), bp.view(torch.int32))
-            and torch.equal(ik, ip),
-            "select timing inputs: kernel differs from plain")
-    L = scene.shape[0]
-    nbytes = scene.numel() * 4 + is_nl.numel() + L * 8
-    e = entry("select_best", "select_best.cu",
-              "uwspr_tpu/ops/select_pallas.py:121", list(scene.shape),
-              ms["kernel"], ms["plain"],
-              bound(nbytes, scene.numel(), F32_FLOP_S, "f32"),
-              None, None, float((bk - bp).abs().nan_to_num().max()))
-    log(f"[timing] {card}: select_best {tuple(scene.shape)}: kernel "
-        f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, library none "
-        f"(an order-dependent walk); bound {e['bound_ms']:.4f} ms "
-        f"({e['bound_kind']}), {100 * e['bound_share']:.1f} % of it "
-        f"(turns {fmt_turns(turns)}); kernel == plain")
-    return e
+    out = {}
+    for name, (grid, is_nl) in (("device", (scene, dec.state["is_nl"])),
+                                ("host", host_grid(hdec, ri))):
+        ms, turns, outs = time_turns(
+            [("plain", lambda: sel.select_best_plain(grid, is_nl,
+                                                     threshold=thr)),
+             ("kernel", lambda: sel.select_best(grid, is_nl, threshold=thr))],
+            {"plain": 5, "kernel": 50})
+        (bp, ip), (bk, ik) = outs["plain"], outs["kernel"]
+        require(torch.equal(bk.view(torch.int32), bp.view(torch.int32))
+                and torch.equal(ik, ip),
+                f"select timing inputs ({name}): kernel differs from plain")
+        L = grid.shape[0]
+        nbytes = grid.numel() * 4 + is_nl.numel() + L * 8
+        e = entry("select_best", "select_best.cu",
+                  "uwspr_tpu/ops/select_pallas.py:121", list(grid.shape),
+                  ms["kernel"], ms["plain"],
+                  bound(nbytes, grid.numel(), F32_FLOP_S, "f32"),
+                  None, None, float((bk - bp).abs().nan_to_num().max()))
+        log(f"[timing] {card}: select_best {name} {tuple(grid.shape)}: "
+            f"kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms, "
+            f"library none (an order-dependent walk); bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_kind']}), "
+            f"{100 * e['bound_share']:.1f} % of it (turns "
+            f"{fmt_turns(turns)}); kernel == plain")
+        out[name] = e
+    return out
 
 
 def timing_fano(dec, ri_c, card, sm_mhz):
@@ -831,6 +975,35 @@ def timing_fano(dec, ri_c, card, sm_mhz):
         f"longest lane's {cmax} forward looks x {FANO_STEP_CLOCKS} clocks at"
         f" {sm_mhz} MHz), {100 * e['bound_share']:.1f} % of it (turns "
         f"{fmt_turns(turns)}); kernel == plain, bit-exact")
+    # deep-SNR load at the full budget: lanes that never decode
+    rng = np.random.default_rng(23)
+    blocks = {"all-timeout block": fano_lanes(rng, 128, None),
+              "mixed chunk": np.concatenate([fano_lanes(rng, 192, 10.0),
+                                             fano_lanes(rng, 64, None)])}
+    other = {}
+    for name, lanes in blocks.items():
+        sym = torch.from_numpy(lanes).cuda()
+        ms, turns, outs = time_turns(
+            [("kernel", lambda: fano.fano_decode_batch(sym, met,
+                                                       maxcycles=mc))],
+            {"kernel": 3})
+        err = max(err, fano_equal(outs["kernel"], native_decode(lanes, mc),
+                                  f"kernel vs native on the {name}"))
+        cyc = outs["kernel"]["cycles"].to(torch.int64)
+        csum, cmax = int(cyc.sum()), int(cyc.max())
+        bms = cmax * FANO_STEP_CLOCKS / (sm_mhz * 1e6) * 1e3
+        other[name] = {"shape": list(lanes.shape), "ms": ms["kernel"],
+                       "plain_ms": None, "bound_ms": bms,
+                       "library_ms": None, "cycles_sum": csum,
+                       "cycles_max": cmax}
+        log(f"[timing] {card}: fano_decode on the {name} ({len(lanes)} "
+            f"lanes, maxcycles={mc}; cycles sum {csum}, max {cmax}): kernel "
+            f"{ms['kernel']:.4f} ms, plain not timed (hours); bound "
+            f"{bms:.4f} ms, {100 * bms / ms['kernel']:.1f} % of it (turns "
+            f"{fmt_turns(turns)}); kernel == native fano_native.cc, "
+            f"bit-exact")
+    e["max_abs_err"] = err
+    e["other_shapes"] = other
     return e
 
 
@@ -969,10 +1142,13 @@ def main() -> int:
     host_launches, _ = phase_host_slice(card, hdec, ri)
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
 
-    sel = timing_select(dec, scene, card)
+    sels = timing_select(dec, scene, hdec, ri, card)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
     probes = timing_probe(card, z_ri, cases)
     stfts = timing_stft(card, z, kw, stft_inputs)
+    sel = sels["device"]
+    sel["other_shapes"] = {"host": {f: sels["host"][f] for f in (
+        "shape", "ms", "plain_ms", "bound_ms", "library_ms")}}
     prb = probes["soft symbols (L=17, F=1)"]
     stf = stfts["column window"]
     prb["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",

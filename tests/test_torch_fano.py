@@ -4,10 +4,11 @@ Tolerance: bit-exact on every result field (success, data, metric,
 cycles, maxnp). The port's plain lockstep version (used for CPU tensors) is
 held against the Pallas kernel in interpret mode and against the Python
 oracle fec.fano_ref on the cases of tests/test_fano_pallas.py, plus
-inactive lanes. The CUDA kernel's own lane logic (csrc/fano_lane.cuh) is
-built with g++ and held against the native C++ decoder and the plain
-version here; the kernel itself is checked on the card by the tests marked
-``cuda``. The plain loop costs one Python step per primitive move, so the
+inactive lanes. The CUDA kernel's own walk (the template fano_walk of
+csrc/fano_lane.cuh, on the metric table its prologue builds with
+node_metrics) is built with g++ and held against the native C++ decoder
+at the full budget and the plain version here; the kernel itself is
+checked on the card by the tests marked ``cuda``. The plain loop costs one Python step per primitive move, so the
 cases that time out keep maxcycles small.
 """
 
@@ -114,14 +115,26 @@ def test_fano_cpu_uses_plain_and_counts():
     assert fano.PLAIN_CALLS == 1 and fano.KERNEL_LAUNCHES == 0
 
 
+# The kernel's walk on the host: the prologue's metric table built with
+# node_metrics, node state zeroed as the kernel zeroes it in shared memory,
+# then fano_walk on the lane.
 _SHIM = r"""
 #include "fano_lane.cuh"
+using namespace uwspr;
 extern "C" void lane_decode(const unsigned char* sym, const unsigned char* act,
                             const int* mettab, int L, int delta, int budget,
                             int* out /* L x 4 */, unsigned char* data) {
   for (int l = 0; l < L; ++l) {
-    uwspr::FanoLaneResult r = uwspr::fano_lane(
-        sym + l * 162, mettab, delta, budget, act[l] != 0, data + l * 10);
+    NodeMetrics met[kNbits];
+    NodeRec rec[kNodes] = {};
+    int32_t branch[kNodes];
+    for (int k = 0; k < kNbits; ++k) {
+      const unsigned char* p = sym + l * 162 + 2 * k;
+      met[k] = node_metrics(mettab, p[0], p[1]);
+    }
+    const LaneNodes nd{rec, branch, met};
+    FanoLaneResult r = fano_walk(nd, delta, budget, act[l] != 0,
+                                 data + l * 10);
     out[4 * l] = r.success; out[4 * l + 1] = r.metric;
     out[4 * l + 2] = r.cycles; out[4 * l + 3] = r.maxnp;
   }

@@ -12,9 +12,12 @@ quirk (Fano.cc:250) and the outputs of inactive lanes, which start done
 (success False, data zero, metric 0, cycles 1, maxnp 0).
 
 ``fano_decode_batch`` is the entry point. For CUDA tensors it launches
-``csrc/fano.cu`` (one thread per lane, each lane stops on its own; the lane
-logic is ``csrc/fano_lane.cuh``) and counts the launch in
-``KERNEL_LAUNCHES``; for CPU tensors it runs ``fano_decode_batch_plain``,
+``csrc/fano.cu`` (one lane per one-warp block, each lane's trellis and
+branch metrics in shared memory, each lane stopping on its own; the walk
+is ``csrc/fano_lane.cuh``) and counts the launch in
+``KERNEL_LAUNCHES``; bool or u8 ``active`` is read as it is and success is
+written as bool, so the wrapper adds no conversion. For CPU tensors it
+runs ``fano_decode_batch_plain``,
 the lockstep tensor loop of fano_jax.py:94-243, and counts the call in
 ``PLAIN_CALLS``. The plain loop costs one Python step per primitive move,
 so keep ``maxcycles`` small when it has to run lanes that time out.
@@ -103,23 +106,27 @@ def fano_decode_batch(symbols: torch.Tensor, mettab: torch.Tensor,
     dev = symbols.device
     L = symbols.shape[0]
     sym = symbols.to(torch.uint8).contiguous()
-    act = (torch.ones(L, dtype=torch.uint8, device=dev) if active is None
-           else active.to(torch.uint8).contiguous())
+    if sym.data_ptr() % 2:                 # the kernel reads 2-byte pairs
+        sym = sym.clone()
+    act = active
+    if act is not None and act.dtype not in (torch.bool, torch.uint8):
+        act = act != 0
+    act = None if act is None else act.contiguous()
     met = mettab.to(torch.int32).contiguous()
-    success = torch.empty(L, dtype=torch.uint8, device=dev)
+    success = torch.empty(L, dtype=torch.bool, device=dev)
     data = torch.empty((L, N_CODED_BITS >> 3), dtype=torch.uint8, device=dev)
     metric = torch.empty(L, dtype=torch.int32, device=dev)
     cycles = torch.empty(L, dtype=torch.int32, device=dev)
     maxnp = torch.empty(L, dtype=torch.int32, device=dev)
     lib = cuda_build.load_library()
     code = lib.uwspr_fano_decode(
-        sym.data_ptr(), act.data_ptr(), met.data_ptr(), L, delta, budget,
-        success.data_ptr(), data.data_ptr(), metric.data_ptr(),
-        cycles.data_ptr(), maxnp.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        sym.data_ptr(), None if act is None else act.data_ptr(),
+        met.data_ptr(), L, delta, budget, success.data_ptr(),
+        data.data_ptr(), metric.data_ptr(), cycles.data_ptr(),
+        maxnp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("uwspr_fano_decode", code)
     KERNEL_LAUNCHES += 1
-    return {"success": success.bool(), "data": data, "metric": metric,
+    return {"success": success, "data": data, "metric": metric,
             "cycles": cycles, "maxnp": maxnp}
 
 
@@ -236,5 +243,6 @@ def fano_decode_batch_plain(symbols: torch.Tensor, mettab: torch.Tensor,
     }
 
 
-__all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS", "branch_metrics",
-           "fano_decode_batch", "fano_decode_batch_plain", "reset_counters"]
+__all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS",
+           "branch_metrics", "fano_decode_batch", "fano_decode_batch_plain",
+           "reset_counters"]

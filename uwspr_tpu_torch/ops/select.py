@@ -9,8 +9,12 @@ lane's (freq, lag, model) grid in order, with best starting at -1e30:
 - NaN never accepts.
 
 ``select_best`` is the entry point. For a CUDA tensor it launches
-``csrc/select_best.cu`` (one warp per lane, every lane in one launch) and
-counts the launch in ``KERNEL_LAUNCHES``; for a CPU tensor it runs
+``csrc/select_best.cu`` (one block per lane, every lane in one launch:
+four warps read the per-group extremes at the HBM rate while a fifth
+follows them with the ballot walk, whose nonlinear
+test is division-free, see ``threshold_midpoint``) and counts the launch
+in ``KERNEL_LAUNCHES``; the model bank may be in any order and is read as
+bytes, so a bool bank costs no conversion. For a CPU tensor it runs
 ``select_best_plain``, a transcription of the event-skip loop
 ``_select_best_grouped`` (uwspr_tpu/coarse/search.py:483-583), and counts
 the call in ``PLAIN_CALLS``. Both are bit-exact with the literal scan.
@@ -18,6 +22,7 @@ the call in ``PLAIN_CALLS``. Both are bit-exact with the literal scan.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from uwspr_tpu_torch.utils import cuda_build
@@ -25,6 +30,9 @@ from uwspr_tpu_torch.utils import cuda_build
 # launches of the CUDA kernel / calls of the plain version, in this process
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
+
+MAX_MODELS = 128       # the kernel holds 4 chunks of 32 models
+MAX_GROUPS = 3072      # its per-group table fits 48 KB of shared memory
 
 
 def reset_counters() -> None:
@@ -55,20 +63,49 @@ def select_best(sync: torch.Tensor, is_nonlinear: torch.Tensor, *,
         return select_best_plain(sync, is_nonlinear, threshold=threshold)
     if sync.device.type != "cuda":
         raise ValueError(f"select_best: unsupported device {sync.device}")
+    mid, tie_up = threshold_midpoint(threshold)
     L, _, _, M = sync.shape
     G = sync.shape[1] * sync.shape[2]
+    if M > MAX_MODELS or G > MAX_GROUPS:
+        raise ValueError(f"select_best: the kernel takes at most "
+                         f"{MAX_MODELS} models and {MAX_GROUPS} groups, got "
+                         f"{M} and {G}")
     grid = sync.contiguous()
-    nl = is_nonlinear.to(torch.int32).contiguous()
+    nl = is_nonlinear
+    if nl.dtype not in (torch.bool, torch.uint8):
+        nl = nl != 0
+    nl = nl.contiguous()
     best = torch.empty(L, dtype=torch.float32, device=sync.device)
     idx = torch.empty(L, dtype=torch.int32, device=sync.device)
     lib = cuda_build.load_library()
     code = lib.uwspr_select_best(
-        grid.data_ptr(), nl.data_ptr(), L, G, M, float(threshold),
+        grid.data_ptr(), nl.data_ptr(), L, G, M, mid, int(tie_up),
         best.data_ptr(), idx.data_ptr(),
         torch.cuda.current_stream(sync.device).cuda_stream)
     cuda_build.check_launch("uwspr_select_best", code)
     KERNEL_LAUNCHES += 1
     return best, idx
+
+
+def threshold_midpoint(threshold: float) -> tuple[float, bool]:
+    """(mid, tie_up) of a finite f32 threshold T: mid is the midpoint
+    between T and the next float above it (exact in double) and tie_up
+    says that a quotient of exactly mid rounds up, above T (T's bit pattern
+    is odd; -0 counts as +0). fl(x) > T iff x > mid, or x == mid and
+    tie_up: the kernel's division-free nonlinear test."""
+    t = np.float32(threshold)
+    if not np.isfinite(t):
+        raise ValueError(f"select_best: threshold {threshold} must be a "
+                         f"finite float32")
+    if t == 0:
+        t = np.float32(0.0)
+    with np.errstate(over="ignore"):
+        up = np.nextafter(t, np.float32(np.inf), dtype=np.float32)
+    if np.isinf(up):                       # T = FLT_MAX: half its ulp
+        mid = float(t) + 2.0 ** 103
+    else:
+        mid = (float(t) + float(up)) / 2
+    return mid, bool(int(t.view(np.int32)) & 1)
 
 
 def select_best_plain(sync: torch.Tensor, is_nonlinear: torch.Tensor, *,
@@ -144,5 +181,6 @@ def select_best_plain(sync: torch.Tensor, is_nonlinear: torch.Tensor, *,
     return best, bidx
 
 
-__all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS", "reset_counters",
-           "select_best", "select_best_plain"]
+__all__ = ["KERNEL_LAUNCHES", "MAX_GROUPS", "MAX_MODELS", "PLAIN_CALLS",
+           "reset_counters", "select_best", "select_best_plain",
+           "threshold_midpoint"]

@@ -13,7 +13,7 @@ The library lands in ``$UWSPR_TORCH_BUILD_DIR``, by default
 digest of the sources, the flags and ``nvcc --version``, so an edited source
 or another toolkit is rebuilt at first use and an unchanged one is loaded as
 it is. There is no ``--use_fast_math``: the selection kernel relies on
-IEEE division and compares, the probe kernel on sincosf's full range
+subnormals and IEEE compares, the probe kernel on sincosf's full range
 reduction and the STFT kernel on round-to-nearest products. The first
 kernel call in a process builds and loads; nothing is built at import
 time.
@@ -44,8 +44,8 @@ _C = ctypes
 # the stream are c_void_p: a bare Python int would be passed as a 32-bit int.
 _SIGNATURES = {
     "uwspr_select_best": [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
-                          _C.c_int, _C.c_float, _C.c_void_p, _C.c_void_p,
-                          _C.c_void_p],
+                          _C.c_int, _C.c_double, _C.c_int, _C.c_void_p,
+                          _C.c_void_p, _C.c_void_p],
     "uwspr_fano_decode": [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
                           _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p, _C.c_void_p, _C.c_void_p,
