@@ -56,7 +56,29 @@ Phases, each raising on failure (nothing is caught):
 9. the device slice with stft_impl="pallas": 128/128 decoded with the STFT
    kernel launched and its plain version never called; ms/window beside
    the default configuration's, timed in turns;
-10. timing: each kernel, its plain version and, where one exists, the one
+10. the serving runtimes on a stream of 128 channels x 24 hops (81,000
+   samples of 375 S/s baseband; 124 channels carry one "VE3EMB FN25 30"
+   frame at -18 dB placed so that one ring window holds it whole, 4 carry
+   noise only), at with_serving_defaults(PipelineConfig(), 128):
+   RingServe decodes every frame in its window and nothing in the noise
+   channels, with the selection and Fano kernels launched and no plain
+   version called; DeviceRingDecoder's packed output of every hop is
+   bitwise equal to DeviceDecoder.decode_windows_ri on the 128 windows
+   sliced at the ring's boundaries, and so are a ring resumed from
+   state() at hop 12, push_hops(4) and staged ingest (pinned buffer, copy
+   stream); int16 ingest decodes the same messages; torch.profiler
+   reads the host-to-device bytes of 4 steady-state hops, at least the
+   hop block and at most the block plus 64 KiB, and splits a hop's time
+   by kernel; the hybrid engine (fano_mode "host") gives the
+   device engine's spots with the native Fano and with the Fano kernel
+   (fano_backend "jax"); BatchedStreamDecoder(batch_windows=128) on the
+   128 channels and on 100 of them (a zero-padded flush) decodes every
+   window that holds a whole frame and drops nothing; StreamDecoder on 2
+   channels with the device (W = 1: no compaction, the per-window Fano
+   cap), hybrid and host engines agrees window by window where a window
+   holds a whole frame or none (cut frames are reported), and resumes
+   from a checkpoint with the same tail;
+11. timing: each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function (torch.stft for the STFT,
    the plain version's complex torch.bmm for the probe; none for the
    selection walk and the Fano search) at the paths' shapes, with CUDA
@@ -71,11 +93,16 @@ Phases, each raising on failure (nothing is caught):
    maxcycles 10,000 on a block of 128 lanes of uniform noise that all run
    the full budget and on a mixed chunk of 192 clean lanes and 64 such
    timeouts (held to the native decoder; the plain version would take
-   hours there, so it is not timed).
+   hours there, so it is not timed). Then the runtimes, in turns, with
+   CUDA events behind the spin kernel and on the host clock: the ring's ms
+   per hop (f32 and int16 ingest) beside DeviceDecoder on the same
+   windows, BatchedStreamDecoder and StreamDecoder(engine="device") per
+   window.
 
-Prints a JSON line of per-kernel results (launches on the main path,
-times, bound, library call) before the last line, and as the last line
-{"ok": true, "device": {...}}.
+Prints a JSON line of the runtimes' times, then a JSON line of per-kernel
+results (launches on the main path and on the ring, times, bound, library
+call) before the last line, and as the last line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -819,6 +846,537 @@ def phase_pallas_slice(card, dec, ri_c):
 
 # ---------------------------------------------------------------- phase 10
 
+RING_CH = 128          # channels of the serving stream
+RING_SIGNAL = 124      # channels 0..123 carry one frame; the rest noise only
+RING_HOPS = 24         # 81,000 samples (216 s) of 375 S/s baseband
+HOP, FL = 3375, 45000
+PREFILL = -(-FL // HOP) - 1          # 13 hops before the ring decodes
+FRAME = 162 * 256                    # samples of one frame
+HTOD_SLACK = 64 * 1024               # bytes beside the block per hop
+PADDED_CH = 100        # BatchedStreamDecoder channels whose last batch is
+                       # short: 11 windows each, 8 x 128 + 76
+
+
+def runtime_config():
+    """The serving configuration of the runtime phase: narrowband, 17
+    jiggles, maxcycles 10,000, under with_serving_defaults at C = 128."""
+    from uwspr_tpu_torch.config import PipelineConfig, with_serving_defaults
+    return with_serving_defaults(PipelineConfig(), RING_CH)
+
+
+def base_config():
+    """What a user of StreamDecoder and BatchedStreamDecoder passes; they
+    apply the serving defaults of their own batch width on the card."""
+    from uwspr_tpu_torch.config import PipelineConfig
+    return PipelineConfig()
+
+
+def make_stream(seed: int = 11):
+    """(RING_CH, RING_HOPS * HOP) complex64 noise at SNR_DB, each of the
+    first RING_SIGNAL channels with one EXPECTED frame at a random
+    frequency offset. A frame sits in ring window k (samples
+    [(k+1)*HOP - FL, (k+1)*HOP), k >= PREFILL, random) at an offset in
+    [160, 750) or [1300, 2000); so that ring window holds it whole, the
+    ones before and after do not (that takes an offset <= 153 or >= 3375),
+    and the host windower's window (start j*HOP) that holds it whole, if
+    any, has it at offset <= 3000 or <= 875 (lags the coarse search
+    reaches). Returns (z, {channel: frame start})."""
+    from uwspr_tpu_torch.io.channel import noise_sigma
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    rng = np.random.default_rng(seed)
+    n = RING_HOPS * HOP
+    s = noise_sigma(SNR_DB)
+    z = (rng.normal(scale=s, size=(RING_CH, n))
+         + 1j * rng.normal(scale=s, size=(RING_CH, n))).astype(np.complex64)
+    starts = {}
+    for c in range(RING_SIGNAL):
+        k = int(rng.integers(PREFILL, RING_HOPS))
+        off = int(rng.integers(160, 1450))
+        off = off if off < 750 else off - 750 + 1300
+        starts[c] = (k + 1) * HOP - FL + off
+        frame = synthesize_frame("VE3EMB", "FN25", 30, pad_to=None,
+                                 freq_offset=float(rng.uniform(-5, 5)))
+        z[c, starts[c]:starts[c] + FRAME] += frame
+        require(holds(starts, c, ring_starts()) == [k],
+                f"frame placement of channel {c}")
+    return z, starts
+
+
+def ring_starts():
+    """{ring hop k: first sample of the window the ring decodes after k}."""
+    return {k: (k + 1) * HOP - FL for k in range(PREFILL, RING_HOPS)}
+
+
+def windower_starts():
+    """{window index j: first sample} of the host windower's windows."""
+    return {j: j * HOP for j in range((RING_HOPS * HOP - FL) // HOP + 1)}
+
+
+def coverage(start: int, lo: int) -> str:
+    """How the window [lo, lo + FL) holds the frame at ``start``."""
+    if lo <= start and start + FRAME <= lo + FL:
+        return "whole"
+    if start + FRAME <= lo or start >= lo + FL:
+        return "none"
+    return "partial"
+
+
+def holds(starts, c, windows) -> list:
+    """The windows (keys of ``windows``) that hold channel c's frame
+    whole."""
+    return [w for w, lo in windows.items()
+            if coverage(starts[c], lo) == "whole"]
+
+
+def hop_block(z, k):
+    return z[:, k * HOP:(k + 1) * HOP]
+
+
+def ring_windows(z, k, dev):
+    """The ring's windows after hop k, sliced from the stream: the newest FL
+    samples of every channel as (C, 2, FL) float32 on ``dev``."""
+    import torch
+    return torch.from_numpy(to_ri(z[:, (k + 1) * HOP - FL:(k + 1) * HOP])
+                            ).to(dev)
+
+
+def check_found(found, holds, what):
+    """found {(window, channel): [messages]}: every channel of ``holds``
+    decodes EXPECTED in a window that holds its frame whole, and the noise
+    channels decode nothing."""
+    for c, ws in holds.items():
+        require(any(EXPECTED in found.get((w, c), []) for w in ws),
+                f"{what}: channel {c} decodes no frame in its windows {ws}")
+    noisy = {k: v for k, v in found.items() if k[1] >= RING_SIGNAL and v}
+    require(not noisy, f"{what}: noise channels decoded {noisy}")
+
+
+def spot_fields(ring, handle):
+    """{(channel, message, freq, shift, jiggle)} of one ring handle."""
+    return sorted((c, s.message, s.freq, s.shift, s.jiggle)
+                  for c, s in ring.spots(ring.fetch(handle)))
+
+
+def profile_hops(ring, blocks):
+    """ring.push_hop(b) for b in blocks under torch.profiler, the first hop
+    a warm-up the trace leaves out (CUPTI can miss the first copy it
+    sees): per traced hop, the host-to-device bytes (the memcpy events'
+    byte counts), the wall time, the device time of all kernels and of the
+    Fano and selection kernels, and the idle share (1 - kernel time / wall
+    time)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    n = len(blocks) - 1
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n,
+                                       repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(
+                         str(path))) as prof:
+            for i, b in enumerate(blocks):
+                if i == 1:
+                    t0 = time.perf_counter()
+                ring.push_hop(b)
+                torch.cuda.synchronize()
+                if i == n:      # before the last step writes the trace
+                    wall = (time.perf_counter() - t0) * 1e3 / n
+                prof.step()
+        events = json.loads(path.read_text())["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    require(copies, "the profiler trace holds no host-to-device copy")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def ms(pred):
+        return sum(float(e["dur"]) for e in kernels
+                   if pred(e["name"])) / 1e3 / n
+    busy = ms(lambda name: True)
+    return {"htod_bytes": sum(int(e["args"]["bytes"]) for e in copies) / n,
+            "wall_ms": wall, "kernel_ms": busy,
+            "fano_ms": ms(lambda name: "fano_kernel" in name),
+            "select_ms": ms(lambda name: "select_best_kernel" in name),
+            "idle_share": 1.0 - busy / wall}
+
+
+def phase_runtimes(card):
+    """The serving runtimes on the card (see the module doc, phase 10)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from uwspr_tpu_torch.pipeline.device_ring import (DeviceRingDecoder,
+                                                      RingServe)
+    from uwspr_tpu_torch.pipeline.stream import (BatchedStreamDecoder,
+                                                 StreamDecoder)
+    dev = "cuda"
+    cfg = runtime_config()
+    z, starts = make_stream()
+    ring_holds = {c: holds(starts, c, ring_starts()) for c in starts}
+    win_holds = {c: holds(starts, c, windower_starts()) for c in starts}
+    log(f"[serve] stream: {RING_CH} channels x {RING_HOPS} hops "
+        f"({RING_HOPS * HOP} samples), frames in {RING_SIGNAL} channels")
+
+    # RingServe, what `uwspr serve --runtime ring` builds: the main path
+    serve = RingServe(cfg, n_channels=RING_CH, device=dev)
+    reset_all_counters()
+    found = {}
+    for k in range(RING_HOPS):
+        for c, r in serve.push(hop_block(z, k)):
+            found.setdefault((k, c), []).extend(s.message for s in r.spots)
+    torch.cuda.synchronize()
+    launches, plain = read_counters()
+    log(f"[serve] RingServe launches over {RING_HOPS} hops: {launches}; "
+        f"plain calls: {plain}")
+    require(launches["select_best"] > 0 and launches["fano_decode"] > 0,
+            f"a kernel of the ring path was not launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"a plain version ran on the ring path: {plain}")
+    require(len(found) == (RING_HOPS - PREFILL) * RING_CH,
+            f"RingServe reported {len(found)} channel-windows")
+    check_found(found, ring_holds, "RingServe")
+    log(f"[serve] RingServe: all {RING_SIGNAL} frames decoded in the window "
+        f"that holds them whole; {RING_CH - RING_SIGNAL} noise channels "
+        f"decoded nothing ({serve.stats.spots} spots in "
+        f"{serve.stats.windows} channel-windows)")
+    del serve
+
+    # every hop bitwise equal to the decoder on the sliced windows
+    ring = DeviceRingDecoder(cfg, n_channels=RING_CH, device=dev)
+    ref, half = {}, None
+    for k in range(RING_HOPS):
+        if k == RING_HOPS // 2:
+            half = ring.state()
+        h = ring.push_hop(hop_block(z, k))
+        require((h is None) == (k < PREFILL), f"ring handle at hop {k}")
+        if h is not None:
+            ref[k] = h
+            want = ring.decoder.decode_windows_ri(
+                ring_windows(z, k, ring.decoder.device))
+            require(torch.equal(h, want),
+                    f"ring hop {k} differs from the decoder on the sliced "
+                    f"windows")
+    log(f"[serve] DeviceRingDecoder: {len(ref)} hops, each bitwise equal to "
+        f"DeviceDecoder.decode_windows_ri on the {RING_CH} windows sliced "
+        f"at the ring's boundaries")
+
+    r2 = DeviceRingDecoder(cfg, n_channels=RING_CH, device=dev)
+    r2.restore(half)
+    for k in range(RING_HOPS // 2, RING_HOPS):
+        h = r2.push_hop(hop_block(z, k))
+        if k >= PREFILL:
+            require(torch.equal(h, ref[k]), f"resumed ring hop {k} differs")
+    del r2
+    log(f"[serve] state() at hop {RING_HOPS // 2}, restore() in a new ring: "
+        f"tail bitwise equal")
+
+    r3 = DeviceRingDecoder(cfg, n_channels=RING_CH, device=dev)
+    for k in range(PREFILL):
+        r3.push_hop(hop_block(z, k))
+    out = r3.push_hops(np.stack([hop_block(z, PREFILL + i)
+                                 for i in range(4)]))
+    require(all(torch.equal(out[i], ref[PREFILL + i]) for i in range(4)),
+            "push_hops(4) differs from four push_hop calls")
+    log("[serve] push_hops(4) bitwise equal to four push_hop calls")
+
+    r4 = DeviceRingDecoder(cfg, n_channels=RING_CH, device=dev)
+    last = PREFILL + 4
+    nxt = r4.stage(hop_block(z, 0))
+    for k in range(last):
+        cur = nxt
+        if k + 1 < last:
+            nxt = r4.stage(hop_block(z, k + 1))      # copy while k decodes
+        h = r4.push_hop(cur)
+        if h is not None:
+            require(torch.equal(h, ref[k]), f"staged hop {k} differs")
+    host = r4.stage(hop_block(z, 0)).host
+    require(bool(host) and all(x.is_pinned() for x in host),
+            "stage() does not copy from pinned memory")
+    del r4
+    log("[serve] stage() (pinned buffer, copy stream, event) then "
+        "push_hop(staged): bitwise equal to push_hop(block)")
+
+    r16 = DeviceRingDecoder(cfg, n_channels=RING_CH, ingest_dtype="int16",
+                            device=dev)
+    found16 = {}
+    for k in range(RING_HOPS):
+        h = r16.push_hop(hop_block(z, k))
+        if h is not None:
+            for c, s in r16.spots(r16.fetch(h)):
+                found16.setdefault((k, c), []).append(s.message)
+    check_found(found16, ring_holds, "int16 ring")
+
+    def per_channel(f):
+        return {c: {m for (_, cc), ms in f.items() if cc == c for m in ms}
+                for c in range(RING_CH)}
+    require(per_channel(found16) == per_channel(found),
+            "int16 ingest decodes other messages than f32 ingest")
+    log("[serve] ingest_dtype='int16': the same messages in every channel")
+
+    htod = {}
+    block_bytes = {"f32": RING_CH * 2 * HOP * 4, "int16": RING_CH * 2 * HOP * 2
+                   + RING_CH * 4}
+    for name, r, k0 in (("f32", r3, PREFILL + 4), ("int16", r16, 0)):
+        prof = profile_hops(r, [hop_block(z, (k0 + i) % RING_HOPS)
+                                for i in range(5)])
+        htod[name] = prof["htod_bytes"]
+        require(block_bytes[name] <= htod[name]
+                <= block_bytes[name] + HTOD_SLACK,
+                f"{name} ring: {htod[name]:.0f} B host-to-device per hop, "
+                f"block {block_bytes[name]} B")
+        log(f"[serve] {card}: {name} ring under torch.profiler, per hop: "
+            f"wall {prof['wall_ms']:.3f} ms, kernels {prof['kernel_ms']:.3f} "
+            f"ms (Fano {prof['fano_ms']:.3f}, selection "
+            f"{prof['select_ms']:.3f}), idle share "
+            f"{prof['idle_share']:.4f}")
+    full = RING_CH * 2 * FL * 4
+    log(f"[serve] host-to-device bytes per steady-state hop (torch.profiler, "
+        f"4 hops after a warm-up hop): f32 {htod['f32']:.0f} B (block {block_bytes['f32']} B), "
+        f"int16 {htod['int16']:.0f} B (block + scales "
+        f"{block_bytes['int16']} B); full f32 windows would be {full} B")
+    del r3, r16
+
+    rh = DeviceRingDecoder(cfg, n_channels=RING_CH, fano_mode="host",
+                           device=dev)
+    for k in range(RING_HOPS):
+        h = rh.push_hop(hop_block(z, k))
+        if h is not None:
+            require(spot_fields(rh, h) == spot_fields(ring, ref[k]),
+                    f"hybrid (native Fano) spots differ at hop {k}")
+    del rh
+    rj = DeviceRingDecoder(dataclasses.replace(cfg, fano_backend="jax"),
+                           n_channels=RING_CH, fano_mode="host", device=dev)
+    reset_all_counters()
+    for k in range(PREFILL + 2):
+        h = rj.push_hop(hop_block(z, k))
+        if h is not None:
+            require(spot_fields(rj, h) == spot_fields(ring, ref[k]),
+                    f"hybrid (jax Fano) spots differ at hop {k}")
+    jl, jp = read_counters()
+    require(jl["fano_decode"] > 0 and jp["fano_decode"] == 0,
+            f"hybrid fano_backend='jax': Fano kernel {jl}, plain {jp}")
+    del rj
+    log(f"[serve] hybrid (fano_mode='host'): native Fano spots equal device "
+        f"mode's in all {len(ref)} hops (message, freq, shift, jiggle); "
+        f"fano_backend='jax' the same, Fano kernel launched "
+        f"{jl['fano_decode']} times")
+
+    n_win = (RING_HOPS * HOP - FL) // HOP + 1
+    for n_ch in (RING_CH, PADDED_CH):
+        bsd = BatchedStreamDecoder(base_config(), n_channels=n_ch,
+                                   batch_windows=128, device=dev)
+        seen, res = {}, []
+        for k in range(RING_HOPS):
+            res.extend(bsd.push(hop_block(z[:n_ch], k)))
+        pushed = len(res)
+        res.extend(bsd.flush())
+        bfound = {}
+        for c, r in res:
+            j = seen[c] = seen.get(c, -1) + 1
+            bfound[(j, c)] = [s.message for s in r.spots]
+        require(len(res) == n_ch * n_win and bsd.windower.dropped == 0,
+                f"BatchedStreamDecoder: {len(res)} windows, dropped "
+                f"{bsd.windower.dropped}")
+        for c in range(min(n_ch, RING_SIGNAL)):
+            for j in win_holds[c]:
+                require(EXPECTED in bfound[(j, c)],
+                        f"BatchedStreamDecoder: channel {c} window {j} holds "
+                        f"a whole frame and did not decode it")
+        check_found(bfound, {c: win_holds[c] for c in range(min(
+            n_ch, RING_SIGNAL)) if win_holds[c]}, "BatchedStreamDecoder")
+        short = len(res) - pushed
+        require(short == (n_ch * n_win) % 128,
+                f"BatchedStreamDecoder flush gave {short} windows")
+        log(f"[serve] BatchedStreamDecoder(batch_windows=128), {n_ch} "
+            f"channels: {len(res)} windows, {pushed} in full batches, "
+            f"{short} in the zero-padded flush; every window that holds a "
+            f"whole frame decoded it; dropped 0")
+        del bsd
+
+    chans = [c for c in range(RING_SIGNAL) if win_holds[c]][:2]
+    sub = z[chans]
+    runs = {}
+    for engine in ("device", "hybrid", "host"):
+        sd = StreamDecoder(base_config(), n_channels=2, engine=engine,
+                           device=dev)
+        reset_all_counters()
+        runs[engine] = [(k, ch, sorted({s.message for s in r.spots}))
+                        for k in range(RING_HOPS)
+                        for ch, r in sd.push(hop_block(sub, k))]
+        launches_e, plain_e = read_counters()
+        want = {"device": ("select_best", "fano_decode"),
+                "hybrid": ("select_best",),
+                "host": ("probe_powers", "select_best")}[engine]
+        require(all(launches_e[w] > 0 for w in want)
+                and all(v == 0 for v in plain_e.values()),
+                f"StreamDecoder({engine}): launches {launches_e}, plain "
+                f"{plain_e}")
+        for i, c in enumerate(chans):
+            for j in win_holds[c]:
+                require(EXPECTED in runs[engine][j * 2 + i][2],
+                        f"StreamDecoder({engine}): channel {c} window {j}")
+        log(f"[serve] StreamDecoder(engine={engine!r}) on channels {chans}: "
+            f"{len(runs[engine])} windows; launches {launches_e}")
+    # every window: (hop, channel, messages); window j of each channel comes
+    # at hop PREFILL + j. The engines must agree where a window holds a
+    # whole frame or none of it; a window that cuts a frame is reported
+    require(runs["device"] == runs["hybrid"],
+            "StreamDecoder device and hybrid engines disagree")
+    cut = []
+    for a, b in zip(runs["device"], runs["host"]):
+        k, ch = a[0], a[1]
+        cov = coverage(starts[chans[ch]], (k - PREFILL) * HOP)
+        if a != b:
+            require(cov == "partial", f"StreamDecoder device {a} and host "
+                    f"{b} disagree on a window that holds {cov} frame")
+            cut.append((a, b))
+    require(len(runs["device"]) == len(runs["host"]), "window counts")
+    sd1 = StreamDecoder(base_config(), n_channels=2, engine="device",
+                        device=dev)
+    split = RING_HOPS // 2
+    for k in range(split):
+        sd1.push(hop_block(sub, k))
+    with tempfile.TemporaryDirectory() as tmp:
+        sd1.save_checkpoint(tmp)
+        sd2 = StreamDecoder(base_config(), n_channels=2, engine="device",
+                            device=dev)
+        sd2.load_checkpoint(tmp)
+    tail = [(k, ch, sorted({s.message for s in r.spots}))
+            for k in range(split, RING_HOPS)
+            for ch, r in sd2.push(hop_block(sub, k))]
+    require(tail == [x for x in runs["device"] if x[0] >= split],
+            "StreamDecoder resumed from a checkpoint gives other spots")
+    log(f"[serve] StreamDecoder: device and hybrid engines agree in all "
+        f"{len(runs['host'])} windows, the host engine in all but "
+        f"{len(cut)} windows that cut a frame {cut}; checkpoint at hop "
+        f"{split} and resume: the same tail")
+    return launches, htod, z, ring
+
+
+def time_runtime_turns(cases):
+    """cases [(name, setup, run)]: run() does some units of work (hops,
+    windows) and returns their count. In turns A B .. B A, each turn runs
+    setup() untimed, then run() between CUDA events behind the spin kernel,
+    then setup() and run() again on the host clock ending in a
+    synchronize. Returns {name: (event ms per unit, wall ms per unit,
+    event turns, wall turns)}."""
+    import torch
+    ev = {name: [] for name, _, _ in cases}
+    wall = {name: [] for name, _, _ in cases}
+    for name, setup, run in cases:         # warm-up
+        setup()
+        run()
+    torch.cuda.synchronize()
+    for name, setup, run in list(cases) + list(reversed(cases)):
+        setup()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        s.record()
+        n = run()
+        e.record()
+        torch.cuda.synchronize()
+        ev[name].append(s.elapsed_time(e) / n)
+        setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run()
+        torch.cuda.synchronize()
+        wall[name].append((time.perf_counter() - t0) * 1e3 / n)
+    return {name: (sum(ev[name]) / len(ev[name]),
+                   sum(wall[name]) / len(wall[name]), ev[name], wall[name])
+            for name, _, _ in cases}
+
+
+def timing_runtimes(card, z, ring, htod):
+    """ms per hop of the ring (f32 and int16 ingest) beside the DeviceDecoder
+    on the same windows, ms per window of BatchedStreamDecoder and of
+    StreamDecoder(engine="device")."""
+    from uwspr_tpu_torch.pipeline.device_ring import DeviceRingDecoder
+    from uwspr_tpu_torch.pipeline.stream import (BatchedStreamDecoder,
+                                                 StreamDecoder)
+    dev = "cuda"
+    cfg = runtime_config()
+    rings = {"f32": ring,
+             "int16": DeviceRingDecoder(cfg, n_channels=RING_CH,
+                                        ingest_dtype="int16", device=dev)}
+    prefill = {}
+    for name, r in rings.items():
+        r.restore({"ring": np.zeros((RING_CH, 2, FL), np.float32),
+                   "filled": 0})
+        for k in range(PREFILL):
+            r.push_hop(hop_block(z, k))
+        prefill[name] = r.state()
+    windows = [ring_windows(z, k, ring.decoder.device)
+               for k in range(PREFILL, RING_HOPS)]
+    state = {}
+
+    def ring_case(name):
+        r = rings[name]
+
+        def setup():
+            r.restore(prefill[name])
+
+        def run():
+            for k in range(PREFILL, RING_HOPS):
+                r.push_hop(hop_block(z, k))
+            return RING_HOPS - PREFILL
+        return (f"ring {name}", setup, run)
+
+    def decoder_run():
+        for w in windows:
+            ring.decoder.decode_windows_ri(w)
+        return len(windows) * RING_CH
+
+    def batched_setup():
+        state["bsd"] = BatchedStreamDecoder(base_config(), n_channels=RING_CH,
+                                            batch_windows=128, device=dev)
+
+    def batched_run():
+        bsd = state["bsd"]
+        return sum(len(bsd.push(hop_block(z, k)))
+                   for k in range(RING_HOPS)) + len(bsd.flush())
+
+    def stream_setup():
+        state["sd"] = StreamDecoder(base_config(), n_channels=1,
+                                    engine="device", device=dev)
+
+    def stream_run():
+        return sum(len(state["sd"].push(hop_block(z[:1], k)))
+                   for k in range(RING_HOPS))
+    t = time_runtime_turns([ring_case("f32"), ring_case("int16"),
+                            ("decoder", lambda: None, decoder_run),
+                            ("batched", batched_setup, batched_run),
+                            ("stream", stream_setup, stream_run)])
+
+    def fmt(name):
+        ev, wall, evt, wallt = t[name]
+        return (f"{ev:.4f} ms (events; turns "
+                f"{', '.join(f'{x:.4f}' for x in evt)}), wall {wall:.4f} ms "
+                f"(turns {', '.join(f'{x:.4f}' for x in wallt)})")
+    for name in ("f32", "int16"):
+        ev = t[f"ring {name}"][0]
+        log(f"[timing] {card}: ring {name} ingest, C = {RING_CH}: "
+            f"{fmt('ring ' + name)} per hop, {RING_CH / ev * 1e3:.1f} "
+            f"channel-windows/s; host-to-device {htod[name]:.0f} B per hop")
+    log(f"[timing] {card}: DeviceDecoder W = {RING_CH} on the ring's windows: "
+        f"{fmt('decoder')} per window ({t['decoder'][0] * RING_CH:.3f} ms "
+        f"per batch, the ring {t['ring f32'][0]:.3f} ms per hop)")
+    log(f"[timing] {card}: BatchedStreamDecoder(batch_windows=128) over "
+        f"{RING_CH} channels: {fmt('batched')} per window")
+    log(f"[timing] {card}: StreamDecoder(engine='device'), W = 1: "
+        f"{fmt('stream')} per window")
+    return {name: {"ms": v[0], "wall_ms": v[1]} for name, v in t.items()}
+
+
+# ---------------------------------------------------------------- phase 11
+
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
 # the card's own limit is printed beside every time): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -1141,11 +1699,13 @@ def main() -> int:
     launches = phase_slice(card, dec, ri, ri_c)
     host_launches, _ = phase_host_slice(card, hdec, ri)
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
+    ring_launches, htod, stream, ring = phase_runtimes(card)
 
     sels = timing_select(dec, scene, hdec, ri, card)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
     probes = timing_probe(card, z_ri, cases)
     stfts = timing_stft(card, z, kw, stft_inputs)
+    runtimes = timing_runtimes(card, stream, ring, htod)
     sel = sels["device"]
     sel["other_shapes"] = {"host": {f: sels["host"][f] for f in (
         "shape", "ms", "plain_ms", "bound_ms", "library_ms")}}
@@ -1162,7 +1722,10 @@ def main() -> int:
                       (prb, host_launches["probe_powers"], probe_err),
                       (stf, pallas_launches["stft_power"], stft_err)):
         e["launches"] = n
+        e["ring_launches"] = ring_launches[e["name"]]
         e["max_abs_err"] = max(e["max_abs_err"], err)
+    print(json.dumps({"runtimes": runtimes, "htod_bytes_per_hop": htod}),
+          flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ Two kinds of test:
 
 - parity: each copy (config, protocol tables and constants, message
   packing, modulation, the channel, c2 files, the numpy SLM model, the
-  Fano reference decoder, the native Fano source, OSD acceptance, stage
-  timers) against its original in ``uwspr_tpu``, on inputs made with numpy
+  Fano reference decoder, the native Fano and windower sources, OSD
+  acceptance, stage timers) against its original in ``uwspr_tpu``, on
+  inputs made with numpy
   from a seed. Tolerance: exact everywhere (the copies are the same code).
 - separation: a static walk of the AST of every port source file (and of
   chip_smoke.py and scripts/torch_stages.py) for imports of ``uwspr_tpu``
@@ -247,15 +248,29 @@ def test_fano_ref_and_native_copy_match_native():
             np.testing.assert_array_equal(a, b)
 
 
+def _code(p):       # a C++ source without comments and blank lines
+    text = re.sub(r"//[^\n]*", "", p.read_text())
+    return [ln.strip() for ln in text.splitlines() if ln.strip()]
+
+
 def test_native_source_is_the_ports_own():
     own = NATIVE_SOURCE.resolve()
     assert own.is_relative_to(ROOT / "uwspr_tpu_torch")
     orig = ROOT / "uwspr_tpu" / "fec" / "native" / "fano_native.cc"
+    assert _code(own) == _code(orig)
 
-    def code(p):       # the source without comments and blank lines
-        text = re.sub(r"//[^\n]*", "", p.read_text())
-        return [ln.strip() for ln in text.splitlines() if ln.strip()]
-    assert code(own) == code(orig)
+
+def test_stream_native_source_is_the_ports_own():
+    """The native windower is built from the port's own copy of
+    stream_native.cc, into the port's build directory."""
+    from uwspr_tpu_torch.pipeline import native
+    from uwspr_tpu_torch.utils.cuda_build import BUILD_DIR
+    own = native.SOURCE.resolve()
+    assert own.is_relative_to(ROOT / "uwspr_tpu_torch")
+    orig = ROOT / "uwspr_tpu" / "pipeline" / "native" / "stream_native.cc"
+    assert _code(own) == _code(orig)
+    lib = pathlib.Path(native.load_windower()._name)
+    assert lib.parent == BUILD_DIR and lib.parent != own.parent
 
 
 def test_accept_osd_equal():

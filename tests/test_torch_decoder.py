@@ -1,10 +1,11 @@
-"""The port's serving slice against the JAX DeviceDecoder.
+"""The port's DeviceDecoder against the JAX DeviceDecoder.
 
 Scene: two windows under with_serving_defaults(PipelineConfig(demod=
 DemodConfig(maxcycles=2000)), 2): one "VE3EMB FN25 30" frame at -18 dB and
-one noise-only window, made with numpy from a seed. The JAX decoder runs on
-the CPU (its Fano through the lax.while_loop path); the port runs on the CPU
-with its plain versions.
+one noise-only window, made with numpy from a seed; the paths without
+compaction and the hybrid engine also take two windows that each hold a
+frame. The JAX decoder runs on the CPU (its Fano through the
+lax.while_loop path); the port runs on the CPU with its plain versions.
 
 Tolerances: decoded messages, valid, success, fano_attempts and
 fano_overflow equal; freq, shift, drift and mode equal on decoded
@@ -12,6 +13,7 @@ candidates; snr to 1e-4 relative and sync to 1e-3 absolute (f32 and bf16
 sums taken in another order).
 """
 
+import dataclasses as dc
 import os
 import pathlib
 import subprocess
@@ -121,30 +123,127 @@ def test_pack_roundtrip(port_run):
     assert (out.osd == 0).all()
 
 
-@pytest.mark.parametrize("what", ["no_cand_compaction", "no_fano_compaction",
-                                  "wideband", "einsum_grid", "osd",
-                                  "host_fano", "truncate"])
+@pytest.mark.parametrize("what", ["wideband", "einsum_grid", "osd",
+                                  "truncate"])
 def test_outside_slice_raises(what):
     cfg, kw = CFG, {}
     d, c = CFG.demod, CFG.coarse
-    import dataclasses as dc
-    if what == "no_cand_compaction":
-        cfg = PipelineConfig()
-    elif what == "no_fano_compaction":
-        cfg = dc.replace(CFG, demod=dc.replace(d, fano_compact_lanes=0))
-    elif what == "wideband":
+    if what == "wideband":
         cfg = with_serving_defaults(
             PipelineConfig(coarse=CoarseConfig(halfbandwidth=187)), 2)
     elif what == "einsum_grid":
         cfg = dc.replace(CFG, coarse=dc.replace(c, grid_impl="einsum"))
-    elif what == "osd":
+    elif what == "osd":          # on-device OSD; the hybrid engine runs it
         cfg = dc.replace(CFG, demod=dc.replace(d, osd_depth=2))
-    elif what == "host_fano":
-        kw = {"fano_mode": "host"}
     else:
         kw = {"truncate_stage": "post_fano"}
     with pytest.raises(NotImplementedError):
         DeviceDecoder(cfg, device="cpu", **kw)
+
+
+# ------------------------------------------------ paths without compaction
+#
+# The configurations that were outside the first slice, each against the JAX
+# DeviceDecoder of the same config, at the tolerances of the module doc.
+
+def two_frames(seed=3):
+    """Two windows, each holding one "VE3EMB FN25 30" frame at -18 dB."""
+    rng = np.random.default_rng(seed)
+    wins = [awgn(synthesize_frame("VE3EMB", "FN25", 30,
+                                  start_sample=int(rng.integers(0, 2000)),
+                                  freq_offset=float(rng.uniform(-5, 5))),
+                 -18, rng=rng) for _ in range(2)]
+    w = np.stack(wins)
+    return np.stack([w.real, w.imag], axis=1).astype(np.float32)
+
+
+RI2 = two_frames()
+PLAIN = PipelineConfig(demod=DemodConfig(maxcycles=2000))
+
+
+def run_both(cfg, ri, fano_mode="device"):
+    """(JAX typed output, port typed output, port decoder) on ``ri``."""
+    jdec = JaxDecoder(jax_config(cfg), fano_mode=fano_mode)
+    tdec = DeviceDecoder(cfg, device="cpu", fano_mode=fano_mode)
+    return (jdec.decode_ri_batch(ri),
+            tdec.decode_ri_batch(torch.from_numpy(ri)), tdec)
+
+
+def assert_outputs_match(t, j, tdec):
+    for w in range(t.success.shape[0]):
+        assert ([s.message for s in tdec.spots(t.window(w))]
+                == tdec.messages(j.window(w)))
+    for key in ("valid", "success", "fano_attempts", "fano_overflow", "osd"):
+        np.testing.assert_array_equal(getattr(t, key), getattr(j, key),
+                                      err_msg=key)
+    s = j.success
+    for key in ("freq", "shift", "drift", "mode", "payload", "jiggle"):
+        np.testing.assert_array_equal(getattr(t, key)[s], getattr(j, key)[s],
+                                      err_msg=key)
+    v = j.valid
+    np.testing.assert_allclose(t.snr[v], j.snr[v], rtol=1e-4)
+    np.testing.assert_allclose(t.sync[s], j.sync[s], atol=1e-3)
+
+
+@pytest.mark.parametrize("refine_max_lanes", [0, 1])
+def test_no_cand_compaction_matches_jax(refine_max_lanes):
+    """cand_compact_lanes == 0: every lane of both windows through the
+    refinement; with refine_max_lanes = 1 the tail runs on one worth lane
+    of the batch and the other window's is counted in fano_overflow."""
+    cfg = dc.replace(PLAIN, demod=dc.replace(
+        PLAIN.demod, refine_max_lanes=refine_max_lanes))
+    j, t, tdec = run_both(cfg, RI2)
+    assert_outputs_match(t, j, tdec)
+    decoded = [len(tdec.messages(t.window(w))) for w in range(2)]
+    if refine_max_lanes:
+        assert decoded == [1, 0] and list(t.fano_overflow) == [0, 1]
+    else:
+        assert decoded == [1, 1] and not t.fano_overflow.any()
+
+
+def test_per_window_fano_cap_matches_jax():
+    """fano_compact_lanes == 0: at most fano_max_lanes gated lanes per
+    window and phase. At maxcycles 1 every Fano lane times out, so phase 2
+    gates the 16 jiggle retries of the signal window and the cap of 4
+    leaves 12 of them in fano_overflow."""
+    cfg = with_serving_defaults(PipelineConfig(
+        demod=DemodConfig(maxcycles=1, fano_max_lanes=4)), 2)
+    cfg = dc.replace(cfg, demod=dc.replace(cfg.demod, fano_compact_lanes=0))
+    j, t, tdec = run_both(cfg, RI)
+    assert_outputs_match(t, j, tdec)
+    assert t.fano_overflow[0] > 0 and t.fano_attempts[0] > 4
+
+
+@pytest.mark.parametrize("osd", [False, True], ids=["fano", "osd_depth_2"])
+def test_hybrid_matches_jax(osd):
+    """fano_mode "host": the packed prefano layout and the host assembly
+    (native Fano). With osd_depth 2 at maxcycles 1 every Fano lane fails
+    and the host OSD rescues the frame, tagged with its order."""
+    cfg = CFG
+    if osd:
+        cfg = dc.replace(CFG, demod=dc.replace(CFG.demod, maxcycles=1,
+                                               osd_depth=2))
+    j, t, tdec = run_both(cfg, RI, fano_mode="host")
+    assert_outputs_match(t, j, tdec)
+    assert tdec.messages(t.window(0)) == ["VE3EMB FN25 30"]
+    assert list(t.osd[0][t.success[0]]) == ([2] if osd else [0])
+    packed = tdec.decode_windows_ri(torch.from_numpy(RI))
+    J = cfg.demod.n_jiggles
+    assert packed.shape == (2, tdec.n_cand, 11 + 2 * J + 162 * J + 1)
+
+
+def test_spots_drop_osd_payload_that_fails_unpack(port_run):
+    """A success tagged as OSD whose payload does not unpack is no spot;
+    a Fano success keeps its spot whatever its payload."""
+    tdec, ta = port_run
+    out = tdec.unpack_output(ta).window(0)
+    c = int(np.flatnonzero(out.success)[0])
+    assert [s.message for s in tdec.spots(out)] == ["VE3EMB FN25 30"]
+    bad = dc.replace(out, payload=out.payload.copy(), osd=out.osd.copy())
+    bad.payload[c] = 255                     # a packed call out of range
+    assert len(tdec.spots(bad)) == 1
+    bad.osd[c] = 2
+    assert tdec.spots(bad) == []
 
 
 def test_pallas_stft_slice_matches_jax(jax_run, port_run):
@@ -153,8 +252,6 @@ def test_pallas_stft_slice_matches_jax(jax_run, port_run):
     (its Pallas kernel in interpret mode): same messages, valid, success
     and fano_attempts; the packed output equals the port's default run,
     whose STFT has the same numerics."""
-    import dataclasses as dc
-
     from uwspr_tpu_torch.ops import stft
     cfg = dc.replace(CFG, coarse=dc.replace(CFG.coarse, stft_impl="pallas"))
     jdec = JaxDecoder(jax_config(cfg))
@@ -211,6 +308,16 @@ host = WindowDecoder(PipelineConfig(coarse=CoarseConfig(maxfreqs=13),
                                     demod=DemodConfig(maxcycles=300)),
                      device="cpu")
 print("host", [s.message for s in host(z).spots])   # native Fano backend
+from uwspr_tpu_torch.pipeline.device_ring import RingServe
+from uwspr_tpu_torch.pipeline.stream import StreamDecoder
+pad = np.zeros(2250, np.complex64)
+plain = PipelineConfig(demod=DemodConfig(maxcycles=200))
+ring = RingServe(plain, device="cpu")           # windows end on hop edges
+print("ring", [s.message for _, r in ring.push(np.concatenate([pad, z]))
+               for s in r.spots])
+sd = StreamDecoder(plain, engine="device", device="cpu")
+print("stream", [s.message for _, r in sd.push(np.concatenate([z, pad]))
+                 for s in r.spots])
 leaked = sorted(m for m in sys.modules if m.startswith("jax")
                 or m == "uwspr_tpu" or m.startswith("uwspr_tpu."))
 assert not leaked, leaked
@@ -229,6 +336,8 @@ def test_port_never_imports_jax(tmp_path):
     assert "NO_JAX_OK" in proc.stdout
     assert "VE3EMB FN25 30" in proc.stdout
     assert "host ['VE3EMB FN25 30']" in proc.stdout
+    assert "ring ['VE3EMB FN25 30']" in proc.stdout
+    assert "stream ['VE3EMB FN25 30']" in proc.stdout
 
 
 def test_entry_points_take_only_port_configs():

@@ -14,18 +14,14 @@ All three are bit-exact with each other. Only active lanes are decoded;
 inactive lanes report zeros, as the JAX dispatcher's native and ref
 backends do (uwspr_tpu/fec/__init__.py). Unlike that dispatcher, nothing
 falls back: a failed build raises, and an unknown backend is a ValueError.
-The native library is built from the source into ``cuda_build.BUILD_DIR``
-under a name that carries a digest of the source and the flags.
+The native library is built from the source by ``utils.gxx_build`` into the
+port's build directory.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import subprocess
-import threading
 
 import numpy as np
 import torch
@@ -33,42 +29,22 @@ import torch
 from uwspr_tpu_torch.fec.fano import fano_decode_batch
 from uwspr_tpu_torch.fec.fano_ref import fano_decode
 from uwspr_tpu_torch.protocol.constants import FANO_METTAB, N_CODED_BITS
-from uwspr_tpu_torch.utils.cuda_build import BUILD_DIR
+from uwspr_tpu_torch.utils.gxx_build import load_gxx_library
 
 NATIVE_SOURCE = pathlib.Path(__file__).resolve().parent / "fano_native.cc"
-GXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
-_lock = threading.Lock()
-_native: ctypes.CDLL | None = None
+
+def _configure(lib: ctypes.CDLL) -> None:
+    lib.uwspr_fano_decode_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.uwspr_fano_decode_batch.restype = None
 
 
 def load_native_fano() -> ctypes.CDLL:
-    """fano_native.cc compiled with g++ into BUILD_DIR (once per source and
-    flags) and loaded once per process."""
-    global _native
-    with _lock:
-        if _native is not None:
-            return _native
-        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-        h.update(NATIVE_SOURCE.read_bytes())
-        lib = BUILD_DIR / f"libfano_native_{h.hexdigest()[:16]}.so"
-        if not lib.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-            cmd = ["g++", *GXX_FLAGS, str(NATIVE_SOURCE), "-o", str(tmp)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
-            os.replace(tmp, lib)
-        handle = ctypes.CDLL(str(lib))
-        handle.uwspr_fano_decode_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        handle.uwspr_fano_decode_batch.restype = None
-        _native = handle
-        return handle
+    """fano_native.cc built with g++ and loaded once per process."""
+    return load_gxx_library(NATIVE_SOURCE, _configure)
 
 
 def _native_decode(symbols, mettab, delta, maxcycles, device):

@@ -1,26 +1,35 @@
 """Batched window decoder on one device: samples in, packed messages out.
 
-Counterpart of uwspr_tpu/pipeline/jit_decoder.py::DeviceDecoder on its
-serving path, ``_decode_windows_batched`` (jit_decoder.py:698-730) under
-``with_serving_defaults`` with cross-window candidate compaction:
+Counterpart of uwspr_tpu/pipeline/jit_decoder.py::DeviceDecoder, batched
+as its ``_decode_windows_batched`` (jit_decoder.py:698-730):
 
   STFT power (stft_impl "pallas": the fused CUDA kernel, computing only
   the columns read) -> smoothed SNR spectrum -> peak pick -> coarse sync
-  grid (conv) -> exact model selection (CUDA kernel) -> cross-window
-  candidate compaction -> phase A/B probe refinement -> joint fine grid,
-  soft symbols over all jiggles, sync/rms gates, deinterleave -> never-drop
-  chunked two-phase Fano (CUDA kernel) -> first success in jiggle order ->
-  packed (W, C, 23) float32.
+  grid (conv) -> exact model selection (CUDA kernel) -> phase A/B probe
+  refinement -> joint fine grid, soft symbols over all jiggles, sync/rms
+  gates, deinterleave -> two-phase Fano (CUDA kernel) -> first success in
+  jiggle order -> packed (W, C, 23) float32.
+
+The lanes the refinement runs on: with cand_compact_lanes > 0 the valid
+candidates gathered across the batch (_compact_cand_pre); otherwise all
+W*C lanes, and with refine_max_lanes > 0 the post-worth tail on the worth
+lanes gathered across the batch (_compact_refine_tail). The Fano: with
+fano_compact_lanes > 0 never-drop chunks of gated lanes across the batch
+(_compact_fano); otherwise at most fano_max_lanes gated lanes per window
+and phase, the rest counted in fano_overflow. fano_mode "host" (the hybrid
+engine) stops after the gates and packs the soft symbols
+(_pack_prefano); ``host_fano_assemble`` runs the Fano on the host through
+``fec.host`` with ``config.fano_backend``, and host OSD when osd_depth > 0.
 
 PyTorch runs eagerly, so the JAX decoder's vmap over windows is a batch
 dimension written out and its bounded while loops are host loops; the one
-device-to-host read per Fano phase is the gated-lane count that sizes the
-chunk loop (and skips the Fano when nothing is gated).
+device-to-host read per compacted Fano phase is the gated-lane count that
+sizes the chunk loop (and skips the Fano when nothing is gated).
 
-Configurations outside this slice raise NotImplementedError rather than
-running another code path: cand_compact_lanes == 0, fano_compact_lanes ==
-0, the wideband einsum grid (hpbm > 32 or grid_impl "einsum"), osd_depth >
-0, fano_mode "host" and truncate_stage.
+Configurations outside the port raise NotImplementedError rather than
+running another code path: the wideband einsum grid (hpbm > 32 or
+grid_impl "einsum"), on-device OSD (osd_depth > 0 with osd_max_lanes > 0
+in fano_mode "device") and truncate_stage.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from uwspr_tpu_torch.coarse.search import (
 )
 from uwspr_tpu_torch.config import PipelineConfig
 from uwspr_tpu_torch.demod.finesync import (
+    complex_to_ri,
     make_shared_probe_lanes,
     probe_constants,
     probe_derotate,
@@ -45,10 +55,14 @@ from uwspr_tpu_torch.demod.finesync import (
 )
 from uwspr_tpu_torch.device import exact_f32, resolve_device
 from uwspr_tpu_torch.fec.fano import fano_decode_batch
+from uwspr_tpu_torch.fec.host import check_backend, fano_decode_batch_host
+from uwspr_tpu_torch.fec.osd import accept_osd
 from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
 from uwspr_tpu_torch.params import state_from_numpy, state_numpy
+from uwspr_tpu_torch.pipeline.decoder import Spot
+from uwspr_tpu_torch.protocol.constants import FANO_METTAB
 from uwspr_tpu_torch.protocol.messages import unpack_message
 
 _NBYTES = 10        # Fano harvest bytes; the payload is the first 7
@@ -70,9 +84,9 @@ class DeviceDecoderOutput:
     slm_params: np.ndarray    # (..., C, 4)
     jiggle: np.ndarray
     valid: np.ndarray
-    fano_overflow: np.ndarray  # per window: valid/worth lanes dropped by caps
+    fano_overflow: np.ndarray  # per window: lanes dropped by the lane caps
     fano_attempts: np.ndarray  # per window: gated (candidate, jiggle) lanes
-    osd: np.ndarray            # always 0 here (OSD is not ported)
+    osd: np.ndarray            # 0 = Fano decode, else the host OSD order
 
     def window(self, w: int) -> "DeviceDecoderOutput":
         return DeviceDecoderOutput(**{
@@ -80,49 +94,48 @@ class DeviceDecoderOutput:
             for f in dataclasses.fields(self)})
 
 
-def check_slice(config: PipelineConfig) -> None:
+FANO_MODES = ("device", "host")
+
+
+def check_slice(config: PipelineConfig, fano_mode: str = "device") -> None:
     """Raise NotImplementedError for configurations this port does not run
     (TypeError for a config that is not the port's own class)."""
     if not isinstance(config, PipelineConfig):
         raise TypeError(f"config must be uwspr_tpu_torch.config."
                         f"PipelineConfig, got {type(config).__module__}."
                         f"{type(config).__name__}")
+    if fano_mode not in FANO_MODES:
+        raise ValueError(f"fano_mode {fano_mode!r} not in {FANO_MODES}")
     c, d = config.coarse, config.demod
-    if d.cand_compact_lanes <= 0:
-        raise NotImplementedError(
-            "cand_compact_lanes == 0: the per-window refine path is not "
-            "ported; build the config with with_serving_defaults(config, W) "
-            "for W > 1")
-    if d.fano_compact_lanes <= 0:
-        raise NotImplementedError(
-            "fano_compact_lanes == 0: the per-window Fano lane cap is not "
-            "ported")
     if c.hpbm > 32 or c.grid_impl == "einsum":
         raise NotImplementedError(
             "the wideband im2col einsum grid (hpbm > 32) is not ported")
-    if d.osd_depth > 0:
-        raise NotImplementedError("on-device OSD (osd_depth > 0) is not "
-                                  "ported")
+    if fano_mode == "device" and d.osd_depth > 0 and d.osd_max_lanes > 0:
+        raise NotImplementedError(
+            "on-device OSD (osd_depth > 0 in fano_mode 'device') is not "
+            "ported; fano_mode 'host' runs the host OSD")
 
 
 class DeviceDecoder:
     """Configuration-baked batched decoder on an explicit device.
 
     ``state`` is the decoder's constant state as numpy arrays (see
-    uwspr_tpu_torch.params); by default it is built from ``config``."""
+    uwspr_tpu_torch.params); by default it is built from ``config``.
+    ``fano_mode`` "device" decodes on the device; "host" is the hybrid
+    engine (gates and soft symbols on the device, Fano on the host)."""
 
     def __init__(self, config: PipelineConfig | None = None, *,
                  device: str | torch.device,
                  state: dict[str, np.ndarray] | None = None,
                  fano_mode: str = "device",
                  truncate_stage: str | None = None):
-        if fano_mode != "device":
-            raise NotImplementedError(
-                f"fano_mode {fano_mode!r}: only the device engine is ported")
         if truncate_stage is not None:
             raise NotImplementedError("truncate_stage is not ported")
         self.config = config or PipelineConfig()
-        check_slice(self.config)
+        check_slice(self.config, fano_mode)
+        if fano_mode == "host":
+            check_backend(self.config.fano_backend)
+        self.fano_mode = fano_mode
         self.device = resolve_device(device)
         self.n_cand = max_peaks(self.config.coarse)
         self.state = state_from_numpy(
@@ -145,9 +158,11 @@ class DeviceDecoder:
 
     def decode_windows_ri(self, ri: torch.Tensor | np.ndarray
                           ) -> torch.Tensor:
-        """(W, 2, fl) float32 real/imag windows -> packed (W, C, 23) float32
-        on the decoder's device (column layout of jit_decoder.py:178-182;
-        ``unpack_output`` gives the typed fields)."""
+        """(W, 2, fl) float32 real/imag windows -> on the decoder's device,
+        fano_mode "device": packed (W, C, 23) float32 (column layout of
+        jit_decoder.py:178-182; ``unpack_output`` gives the typed fields);
+        fano_mode "host": packed prefano (W, C, 12+164J) float32
+        (``_pack_prefano``; ``host_fano_assemble`` decodes it)."""
         ri = torch.as_tensor(ri)
         if ri.dim() != 3 or ri.shape[1] != 2:
             raise ValueError(f"ri must be (W, 2, fl), got {tuple(ri.shape)}")
@@ -156,7 +171,31 @@ class DeviceDecoder:
         ri = ri.to(self.device)
         with torch.no_grad(), exact_f32():
             pre = self.prefano(ri)
+            if self.fano_mode == "host":
+                return self._pack_prefano(pre)
             return self._pack(self._fano_select_batch(pre))
+
+    def decode_ri_batch(self, ri: torch.Tensor | np.ndarray
+                        ) -> DeviceDecoderOutput:
+        """(W, 2, fl) float32 windows -> typed output, following fano_mode
+        (jit_decoder.py:1228-1233)."""
+        return self.fetch(self.decode_windows_ri(ri))
+
+    def fetch(self, packed: torch.Tensor) -> DeviceDecoderOutput:
+        """A packed result of decode_windows_ri (any leading dims) -> typed
+        output: unpacked, or in fano_mode "host" Fano-decoded on the host."""
+        if self.fano_mode == "host":
+            return self.host_fano_assemble(packed)
+        return self.unpack_output(packed)
+
+    def decode_batch(self, zs: np.ndarray) -> DeviceDecoderOutput:
+        """(W, fl) complex windows -> batched output (leading axis W)."""
+        return self.decode_ri_batch(np.stack([complex_to_ri(z)
+                                              for z in np.asarray(zs)]))
+
+    def __call__(self, z: np.ndarray) -> DeviceDecoderOutput:
+        """One (fl,) complex window -> its output, as a batch of one."""
+        return self.decode_batch(np.asarray(z)[None]).window(0)
 
     # -- coarse stage (jit_decoder.py:302-410) ------------------------------
 
@@ -359,13 +398,86 @@ class DeviceDecoder:
 
     def prefano(self, ri: torch.Tensor) -> dict:
         """(W, 2, fl) -> per-window candidate state, gates and deinterleaved
-        symbols: coarse search on every window, then refinement on the
-        valid lanes gathered across the batch (_compact_cand_pre,
-        jit_decoder.py:780-863). Valid lanes beyond cand_compact_lanes are
-        dropped weakest coarse SNR first and counted in refine_overflow."""
+        symbols, each (W, C, ...): coarse search on every window, then the
+        refinement on the lanes the config picks (see the module doc)."""
         dcfg = self.config.demod
         z_all = torch.complex(ri[:, 0], ri[:, 1])
         coarse = self._coarse_stage(z_all)
+        if dcfg.cand_compact_lanes > 0:
+            return self._compact_cand_pre(z_all, coarse)
+        # every lane of every window (the vmap of _prefano,
+        # jit_decoder.py:283-300), as one batch of W*C lanes
+        W, C = coarse["valid"].shape
+        flat = {k: v.reshape((W * C,) + v.shape[2:]) for k, v in coarse.items()}
+        widx = torch.arange(W, device=z_all.device).repeat_interleave(C)
+        head = self._refine_common(flat, self._lane_probe(z_all, widx))
+        if dcfg.refine_max_lanes > 0:
+            return self._compact_refine_tail(head, W, C)
+        tail = self._prefano_tail(head)
+
+        def unflat(v):
+            return v.reshape((W, C) + v.shape[1:])
+        return {
+            "valid": coarse["valid"], "snr": coarse["snr"],
+            "mode": coarse["mode"], "slm_params": coarse["slm_params"],
+            "drift": unflat(head["drift"]),
+            **{k: unflat(tail[k]) for k in ("worth", "freq", "shift",
+                                            "sync2", "gate", "deint")},
+        }
+
+    def _lane_probe(self, z_all: torch.Tensor, widx: torch.Tensor):
+        """The probe builder of _refine_common for lanes that read window
+        widx[l] of z_all."""
+        pdt = "bf16" if self.config.demod.probe_dtype == "bf16" else "c64"
+        return lambda center, reach, Wp, block: make_shared_probe_lanes(
+            z_all, widx, center, reach=reach, W=Wp, block=block, dtype=pdt)
+
+    def _compact_refine_tail(self, head: dict, W: int, C: int) -> dict:
+        """The post-worth tail on at most refine_max_lanes worth lanes
+        gathered across the batch, scattered back; worth lanes beyond the
+        cap are counted per window in refine_overflow
+        (jit_decoder.py:732-778)."""
+        dcfg = self.config.demod
+        dev = head["freq"].device
+        J = dcfg.n_jiggles
+        ML = min(dcfg.refine_max_lanes, W * C)
+        worthy = head["worth0"] & head["valid"]                 # (W*C,)
+        sel = torch.argsort((~worthy).to(torch.int8), stable=True)[:ML]
+        sub = {k: head[k][sel]
+               for k in ("valid", "freq", "shift", "drift", "mode",
+                         "slm_params", "sync1", "Amat2", "base2")}
+        sub["worth0"] = worthy[sel]     # padding lanes stay unworthy
+        tail = self._prefano_tail(sub)
+
+        def scat(base_flat, vals):
+            out = base_flat.clone()
+            out[sel] = vals
+            return out.reshape((W, C) + vals.shape[1:])
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        selmask = zeros(W * C, torch.bool)
+        selmask[sel] = True
+        return {
+            "valid": head["valid"].reshape(W, C),
+            "snr": head["snr"].reshape(W, C),
+            "mode": head["mode"].reshape(W, C),
+            "slm_params": head["slm_params"].reshape(W, C, -1),
+            "drift": head["drift"].reshape(W, C),
+            "worth": scat(zeros(W * C, torch.bool), tail["worth"]),
+            "freq": scat(head["freq"], tail["freq"]),
+            "shift": scat(head["shift"], tail["shift"]),
+            "sync2": scat(zeros((W * C, J), torch.float32), tail["sync2"]),
+            "gate": scat(zeros((W * C, J), torch.bool), tail["gate"]),
+            "deint": scat(zeros((W * C, J, 162), torch.uint8), tail["deint"]),
+            "refine_overflow": (worthy & ~selmask).reshape(W, C).sum(dim=1),
+        }
+
+    def _compact_cand_pre(self, z_all: torch.Tensor, coarse: dict) -> dict:
+        """Refinement on the valid lanes gathered across the batch
+        (jit_decoder.py:780-863). Valid lanes beyond cand_compact_lanes are
+        dropped weakest coarse SNR first and counted in refine_overflow."""
+        dcfg = self.config.demod
         W, C = coarse["valid"].shape
         dev = z_all.device
         J = dcfg.n_jiggles
@@ -375,11 +487,7 @@ class DeviceDecoder:
         sel = torch.argsort(key, stable=True)[:ML]
         widx = torch.div(sel, C, rounding_mode="floor")
         st = {k: v[sel] for k, v in flat.items()}
-        pdt = "bf16" if dcfg.probe_dtype == "bf16" else "c64"
-        head = self._refine_common(
-            st, probe=lambda center, reach, Wp, block: make_shared_probe_lanes(
-                z_all, widx, center, reach=reach, W=Wp, block=block,
-                dtype=pdt))
+        head = self._refine_common(st, self._lane_probe(z_all, widx))
 
         worthy = head["worth0"] & head["valid"]                 # (ML,)
         ML2 = (min(dcfg.refine_max_lanes, ML) if dcfg.refine_max_lanes > 0
@@ -458,37 +566,66 @@ class DeviceDecoder:
             i += 1
         return succ, data
 
+    def _fano_phase(self, gate: torch.Tensor, deint: torch.Tensor):
+        """One Fano phase over (W, N) gated lanes with (W, N, 162) symbols
+        -> success (W, N), data (W, N, 10), overflow (W,). With
+        fano_compact_lanes > 0 every gated lane of the batch is decoded
+        (_compact_fano); otherwise at most fano_max_lanes gated lanes per
+        window, gated first, in one call over W*ML lanes, and the gated
+        lanes beyond the cap are the overflow (jit_decoder.py:949-966,
+        :984-1000)."""
+        dcfg = self.config.demod
+        W, N = gate.shape
+        dev = gate.device
+        cap = dcfg.fano_compact_lanes
+        if cap > 0:
+            succ, data = self._compact_fano(gate.reshape(W * N),
+                                            deint.reshape(W * N, 162), cap)
+            return (succ.reshape(W, N), data.reshape(W, N, _NBYTES),
+                    torch.zeros(W, dtype=torch.int64, device=dev))
+        ML = min(dcfg.fano_max_lanes, N)
+        sel = torch.argsort((~gate).to(torch.int8), dim=1, stable=True)[:, :ML]
+        g = torch.gather(gate, 1, sel)                          # (W, ML)
+        wi = torch.arange(W, device=dev)[:, None]
+        out = fano_decode_batch(deint[wi, sel].reshape(W * ML, 162),
+                                self.state["mettab"], g.reshape(W * ML),
+                                maxcycles=dcfg.maxcycles,
+                                delta=dcfg.fano_delta)
+        succ = torch.zeros((W, N), dtype=torch.bool, device=dev)
+        succ[wi, sel] = out["success"].reshape(W, ML) & g
+        data = torch.zeros((W, N, _NBYTES), dtype=torch.uint8, device=dev)
+        data[wi, sel] = out["data"].reshape(W, ML, _NBYTES)
+        return succ, data, torch.clamp(gate.sum(dim=1) - ML, min=0)
+
     def _fano_select_batch(self, pre: dict) -> dict:
         """Two-phase Fano (jiggle 0 of every lane, then the other jiggles of
         lanes phase 1 did not decode) and first success in jiggle order
         (jit_decoder.py:928-1022)."""
-        dcfg = self.config.demod
         gate = pre["gate"]
         W, C, J = gate.shape
         dev = gate.device
         widx = torch.arange(W, device=dev)[:, None]
         cidx = torch.arange(C, device=dev)[None, :]
         deint = pre["deint"]
-        cap = dcfg.fano_compact_lanes
+        overflow = pre.get("refine_overflow",
+                           torch.zeros(W, dtype=torch.int64, device=dev))
 
-        gate0 = gate[:, :, 0]
-        succ0f, data0f = self._compact_fano(
-            gate0.reshape(W * C), deint[:, :, 0].reshape(W * C, 162), cap)
-        succ0 = succ0f.reshape(W, C)
-        data0 = data0f.reshape(W, C, _NBYTES)
+        succ0, data0, over0 = self._fano_phase(gate[:, :, 0], deint[:, :, 0])
+        overflow = overflow + over0
         if J == 1:
             any_success = succ0
             jbest = torch.zeros((W, C), dtype=torch.int64, device=dev)
             payload = data0[:, :, :7]
         else:
             R = C * (J - 1)
-            gate_rest = (gate[:, :, 1:] & ~succ0[:, :, None]).reshape(W * R)
-            succrf, datarf = self._compact_fano(
-                gate_rest, deint[:, :, 1:].reshape(W * R, 162), cap)
+            gate_rest = (gate[:, :, 1:] & ~succ0[:, :, None]).reshape(W, R)
+            succr, datar, over2 = self._fano_phase(
+                gate_rest, deint[:, :, 1:].reshape(W, R, 162))
+            overflow = overflow + over2
             success = torch.cat([succ0[:, :, None],
-                                 succrf.reshape(W, C, J - 1)], dim=2)
+                                 succr.reshape(W, C, J - 1)], dim=2)
             data = torch.cat([data0[:, :, None],
-                              datarf.reshape(W, C, J - 1, _NBYTES)], dim=2)
+                              datar.reshape(W, C, J - 1, _NBYTES)], dim=2)
             any_success = success.any(dim=2)
             jbest = torch.argmax(success.to(torch.int8), dim=2)  # first True
             payload = data[widx, cidx, jbest][..., :7]
@@ -499,9 +636,111 @@ class DeviceDecoder:
             "shift": pre["shift"], "drift": pre["drift"],
             "mode": pre["mode"], "slm_params": pre["slm_params"],
             "jiggle": jbest, "valid": pre["valid"],
-            "fano_overflow": pre["refine_overflow"],
+            "fano_overflow": overflow,
             "fano_attempts": gate.sum(dim=(1, 2)),
         }
+
+    # -- hybrid engine (jit_decoder.py:572-592, :1120-1212) -----------------
+
+    @staticmethod
+    def _pack_prefano(pre: dict) -> torch.Tensor:
+        """Candidate metadata, gates and deinterleaved symbols in one
+        (W, C, 12+164J) float32 tensor:
+        0 valid 1 worth 2 freq 3 snr 4 shift 5 drift 6 mode 7:11 slm
+        11:11+J sync2  11+J:11+2J gate  11+2J:11+(2+162)J symbols
+        11+164J (last): refine overflow of the window (the host Fano has
+        no cap)."""
+        f32 = torch.float32
+        W, C, J = pre["gate"].shape
+        head = torch.stack([pre[k].to(f32) for k in (
+            "valid", "worth", "freq", "snr", "shift", "drift", "mode")],
+            dim=-1)                                             # (W, C, 7)
+        ovf = pre.get("refine_overflow")
+        ovf = (torch.zeros((W, C, 1), dtype=f32, device=head.device)
+               if ovf is None else ovf.to(f32)[:, None, None].expand(W, C, 1))
+        return torch.cat([head, pre["slm_params"].to(f32),
+                          pre["sync2"].to(f32), pre["gate"].to(f32),
+                          pre["deint"].reshape(W, C, J * 162).to(f32), ovf],
+                         dim=-1)
+
+    def host_fano_assemble(self, a) -> DeviceDecoderOutput:
+        """Packed prefano (..., C, 12+164J) -> two-phase Fano on the host
+        through fec.host with config.fano_backend, first success in jiggle
+        order, then host OSD (fec.osd.accept_osd plus the unpack screen)
+        for worth candidates whose gated lanes all failed when osd_depth >
+        0 (jit_decoder.py:1120-1212)."""
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        dcfg = self.config.demod
+        a = np.asarray(a)
+        C, J = self.n_cand, dcfg.n_jiggles
+        lead = a.shape[:-2]
+        flat = a.reshape(-1, C, a.shape[-1])
+        W = flat.shape[0]
+        valid = flat[..., 0] > 0.5
+        worth = flat[..., 1] > 0.5
+        freq = flat[..., 2].astype(np.float32)
+        snr = flat[..., 3].astype(np.float32)
+        shift = flat[..., 4].astype(np.int32)
+        drift = flat[..., 5].astype(np.float32)
+        mode = flat[..., 6].astype(np.int32)
+        slm = flat[..., 7:11].astype(np.float32)
+        sync2 = flat[..., 11:11 + J].astype(np.float32)         # (W, C, J)
+        gate = flat[..., 11 + J:11 + 2 * J] > 0.5
+        deint = (flat[..., 11 + 2 * J:11 + (2 + 162) * J]
+                 .reshape(W, C, J, 162).astype(np.uint8))
+        refine_overflow = flat[..., 0, -1].astype(np.int32)     # (W,)
+
+        def fano(symbols, active):
+            succ, data, _, _, _ = fano_decode_batch_host(
+                symbols.reshape(-1, 162), active.reshape(-1),
+                backend=self.config.fano_backend, device=self.device,
+                mettab=FANO_METTAB, delta=dcfg.fano_delta,
+                maxcycles=dcfg.maxcycles)
+            return succ.reshape(active.shape) & active, data
+        # two phases, as on the device: jiggle 0, then the other jiggles of
+        # candidates whose jiggle-0 lane failed
+        succ0, data0 = fano(deint[:, :, 0], gate[:, :, 0])
+        success = succ0[:, :, None]
+        data = data0.reshape(W, C, 1, -1)
+        if J > 1:
+            gate_rest = gate[:, :, 1:] & ~succ0[:, :, None]
+            succr, datar = fano(deint[:, :, 1:], gate_rest)
+            success = np.concatenate([success, succr], axis=2)
+            data = np.concatenate([data, datar.reshape(W, C, J - 1, -1)],
+                                  axis=2)
+        any_s = success.any(axis=-1)
+        jbest = np.argmax(success, axis=-1).astype(np.int32)    # first True
+        wi, ci = np.indices((W, C))
+        payload = data[wi, ci, jbest, :7]
+
+        osd = np.zeros((W, C), np.int32)
+        if dcfg.osd_depth > 0:
+            for w, c in zip(*np.nonzero(worth & ~any_s & gate.any(axis=-1))):
+                j, pl = accept_osd(deint[w, c], gate[w, c], sync2[w, c], dcfg)
+                if pl is None or unpack_message(pl) is None:
+                    continue
+                any_s[w, c] = True
+                payload[w, c] = np.frombuffer(pl, np.uint8)
+                jbest[w, c] = j
+                osd[w, c] = dcfg.osd_depth
+        return DeviceDecoderOutput(
+            success=(any_s & worth).reshape(*lead, C),
+            payload=payload.reshape(*lead, C, 7),
+            freq=freq.reshape(*lead, C),
+            snr=snr.reshape(*lead, C),
+            sync=sync2[wi, ci, jbest].reshape(*lead, C),
+            shift=shift.reshape(*lead, C),
+            drift=drift.reshape(*lead, C),
+            mode=mode.reshape(*lead, C),
+            slm_params=slm.reshape(*lead, C, 4),
+            jiggle=jbest.reshape(*lead, C),
+            valid=valid.reshape(*lead, C),
+            fano_overflow=refine_overflow.reshape(lead),
+            fano_attempts=gate.sum(axis=(1, 2)).astype(np.int32)
+            .reshape(lead),
+            osd=osd.reshape(*lead, C),
+        )
 
     # -- output packing (jit_decoder.py:178-230) ----------------------------
 
@@ -559,6 +798,35 @@ class DeviceDecoder:
                 msgs.append(u.text)
         return msgs
 
+    @staticmethod
+    def spots(out: DeviceDecoderOutput, hashtable=None) -> list[Spot]:
+        """One window's output -> pipeline.decoder.Spot list (host unpack).
+        An OSD candidate whose payload fails protocol unpacking is dropped
+        (jit_decoder.py:1244-1275)."""
+        spots = []
+        for c in np.flatnonzero(out.success):
+            payload = bytes(out.payload[c])
+            u = unpack_message(payload, hashtable)
+            if u is None and int(out.osd[c]) > 0:
+                continue
+            spots.append(Spot(
+                message=u.text if u is not None else "",
+                payload=payload,
+                freq=float(out.freq[c]),
+                snr=float(out.snr[c]),
+                sync=float(out.sync[c]),
+                shift=int(out.shift[c]),
+                drift=float(out.drift[c]),
+                mode=int(out.mode[c]),
+                slm_params=tuple(np.asarray(out.slm_params[c], float))
+                if int(out.mode[c]) else (),
+                candidate=int(c),
+                jiggle=int(out.jiggle[c]),
+                unpacked=u,
+                osd=int(out.osd[c]),
+            ))
+        return spots
+
 
 def _offsets_f32(step: float, device) -> torch.Tensor:
     """(-2..2) * step in float32, as jnp.arange(-2, 3) * step."""
@@ -566,4 +834,5 @@ def _offsets_f32(step: float, device) -> torch.Tensor:
         * np.float32(step)
 
 
-__all__ = ["DeviceDecoder", "DeviceDecoderOutput", "check_slice"]
+__all__ = ["DeviceDecoder", "DeviceDecoderOutput", "FANO_MODES",
+           "check_slice"]
