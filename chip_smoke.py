@@ -78,7 +78,36 @@ Phases, each raising on failure (nothing is caught):
    cap), hybrid and host engines agrees window by window where a window
    holds a whole frame or none (cut frames are reported), and resumes
    from a checkpoint with the same tail;
-11. timing: each kernel, its plain version and, where one exists, the one
+11. the wideband configuration (the GNU Radio block's default
+   halfbandwidth 187: hpbm 256, the whole 512-bin spectrum, C = 200) at
+   with_serving_defaults(PipelineConfig(coarse=CoarseConfig(
+   halfbandwidth=187, maxfreqs=200)), 32) on scripts/bench_matrix.py's
+   scene (32 windows, 10 frames each across +/-170 Hz at -15 dB, seed 3):
+   320/320 decoded with the einsum grid on bf16 operands; again with
+   stft_impl="pallas" (the STFT kernel at (32, 348, 512)), the same
+   message sets; the host engine on 2 of the windows
+   gives the same message sets; ms/window by CUDA events and wall, peak
+   device memory;
+12. on-device OSD: 32 windows of one frame at -30 dB (the deep-SNR recipe
+   of scripts/bench_matrix.py, seed 5) at osd_depth 4 against osd_depth 0
+   under with_serving_defaults(., 32): every Fano decode of the OSD-off
+   run kept, at least one OSD-tagged spot and every one of them the
+   transmitted message; the rescue's lanes through fec/osd_torch.py on the
+   card equal to the CPU run and, for the first 16, to the host
+   fec/osd.osd_decode at order 4; the OSD stage's ms and the decode's with
+   OSD on and off;
+13. multipass: StreamDecoder(passes=2) with the device and hybrid engines
+   on tests/test_multipass.py's masked scene (seed 100) decodes the strong
+   frame in pass 0 and the weak one in pass 1, passes=1 misses the weak
+   one; wall ms per window;
+   on each of the paths of 11 to 13, every select_best and fano_decode_batch
+   call the device engine made is recorded (KernelCalls) and replayed: the
+   selection grid (the wideband (6400, 5, 26, 126) grid among them) through
+   select_best_plain, best bitwise and index equal; the Fano lanes (the
+   wideband chunk, the deep-SNR timeouts, each pass's W = 1 lanes) through
+   the native C++ decoder at the call's budget, bit-exact, inactive lanes to
+   the kernel's contract;
+14. timing: each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function (torch.stft for the STFT,
    the plain version's complex torch.bmm for the probe; none for the
    selection walk and the Fano search) at the paths' shapes, with CUDA
@@ -93,20 +122,25 @@ Phases, each raising on failure (nothing is caught):
    maxcycles 10,000 on a block of 128 lanes of uniform noise that all run
    the full budget and on a mixed chunk of 192 clean lanes and 64 such
    timeouts (held to the native decoder; the plain version would take
-   hours there, so it is not timed). Then the runtimes, in turns, with
+   hours there, so it is not timed). Selection is also timed on the
+   wideband (6400, 5, 26, 126) grid, and the STFT on the wideband
+   (32, 348, 512) call. Then the runtimes, in turns, with
    CUDA events behind the spin kernel and on the host clock: the ring's ms
    per hop (f32 and int16 ingest) beside DeviceDecoder on the same
    windows, BatchedStreamDecoder and StreamDecoder(engine="device") per
    window.
 
-Prints a JSON line of the runtimes' times, then a JSON line of per-kernel
-results (launches on the main path and on the ring, times, bound, library
+Every path is driven with the kernel counts set to 0 just before it and
+read just after. Prints a JSON line of the runtimes', wideband, OSD and
+multipass times, then a JSON line of per-kernel results (launches on the
+main path, on the ring and on every other path, times, bound, library
 call) before the last line, and as the last line {"ok": true, "device":
 {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -1377,6 +1411,479 @@ def timing_runtimes(card, z, ring, htod):
 
 # ---------------------------------------------------------------- phase 11
 
+WB_WINDOWS = 32
+WB_CALLS = ["K1ABC", "W9XYZ", "N2AB", "VE3EMB", "G4CDE",
+            "JA1FG", "VK2HI", "PY3JK", "ZS6LM", "OH2NP"]
+WB_GRIDS = ["FN42", "EM12", "FN31", "FN25", "IO91",
+            "PM95", "QF56", "GF49", "KG33", "KP20"]
+WB_SNR_DB = -15.0
+WB_HOST = 2             # of its windows through the host engine
+
+
+def wideband_windows(seed: int = 3):
+    """scripts/bench_matrix.py:106-137's scene: WB_WINDOWS windows of noise
+    at WB_SNR_DB, each with the 10 frames of WB_CALLS spread across +/-170
+    Hz; returns (ri, the expected message set of each window)."""
+    from uwspr_tpu_torch.io.channel import noise_sigma
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    rng = np.random.default_rng(seed)
+    sigma = noise_sigma(WB_SNR_DB)
+    base = np.linspace(-170, 170, len(WB_CALLS))
+    wins, expected = [], []
+    for _ in range(WB_WINDOWS):
+        z = (rng.normal(scale=sigma, size=45000)
+             + 1j * rng.normal(scale=sigma, size=45000)).astype(np.complex64)
+        exp = set()
+        for k, (call, grid) in enumerate(zip(WB_CALLS, WB_GRIDS)):
+            f = float(base[k] + rng.uniform(-2, 2))
+            z += synthesize_frame(call, grid, 30,
+                                  start_sample=int(rng.integers(0, 2000)),
+                                  freq_offset=f, pad_to=45000)
+            exp.add(f"{call} {grid} 30")
+        wins.append(z)
+        expected.append(exp)
+    return to_ri(np.stack(wins)), expected
+
+
+def decode_timed(dec, ri_c, reps=1):
+    """(last packed output, ms/window by CUDA events, ms/window wall)."""
+    import torch
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.record()
+    for _ in range(reps):
+        out = dec.decode_windows_ri(ri_c)
+    e.record()
+    torch.cuda.synchronize()
+    W = ri_c.shape[0] * reps
+    return (out, s.elapsed_time(e) / W,
+            (time.perf_counter() - t0) * 1e3 / W)
+
+
+class KernelCalls:
+    """While active, keeps a host copy of the inputs and outputs of every
+    select_best and fano_decode_batch call that the device engine makes
+    (pipeline/device_decoder.py binds both names), so that replay() can hold
+    each call against its plain oracle afterwards. Host copies leave the
+    card's peak memory as the path alone has it."""
+
+    def __enter__(self):
+        import torch
+
+        from uwspr_tpu_torch.pipeline import device_decoder as ddm
+        self.ddm = ddm
+        self.orig = (ddm.select_best, ddm.fano_decode_batch)
+        self.select, self.fano = [], []
+        select_k, fano_k = self.orig
+
+        def select(grid, is_nl, *, threshold):
+            best, idx = select_k(grid, is_nl, threshold=threshold)
+            self.select.append((grid.cpu(), is_nl.cpu(), threshold,
+                                best.cpu(), idx.cpu()))
+            return best, idx
+
+        def fano(symbols, mettab, active=None, *, delta=60, maxcycles=10000):
+            out = fano_k(symbols, mettab, active, delta=delta,
+                         maxcycles=maxcycles)
+            self.fano.append((symbols.to(torch.uint8).cpu(), mettab.cpu(),
+                              None if active is None else
+                              (active != 0).cpu(), delta, maxcycles,
+                              {k: v.cpu() for k, v in out.items()}))
+            return out
+        ddm.select_best, ddm.fano_decode_batch = select, fano
+        return self
+
+    def __exit__(self, *exc):
+        self.ddm.select_best, self.ddm.fano_decode_batch = self.orig
+
+    def replay(self, what):
+        """Every recorded selection call through select_best_plain on the
+        card (best bitwise, index equal); every Fano call's active lanes
+        through the native C++ decoder at the call's mettab, delta and
+        budget (success, data, metric, cycles, maxnp equal), its inactive
+        lanes to the kernel's contract. Records the calls and lanes
+        replayed, and the largest Fano field difference (0 when bit-exact),
+        in REPLAYED."""
+        import torch
+
+        from uwspr_tpu_torch.fec.host import fano_decode_batch_host
+        from uwspr_tpu_torch.ops import select as sel
+        t0 = time.perf_counter()
+        n_sel = 0
+        for grid, is_nl, thr, best, idx in self.select:
+            bp, ip = sel.select_best_plain(grid.cuda(), is_nl.cuda(),
+                                           threshold=thr)
+            require(torch.equal(best.view(torch.int32),
+                                bp.cpu().view(torch.int32))
+                    and torch.equal(idx, ip.cpu()),
+                    f"{what}: select_best differs from its plain version on "
+                    f"the path's grid {tuple(grid.shape)}")
+            n_sel += grid.shape[0]
+        err, n_act, n_timeout = 0.0, 0, 0
+        for sym, met, act, delta, mc, out in self.fano:
+            a = (np.ones(sym.shape[0], bool) if act is None
+                 else act.numpy())
+            ref = fano_decode_batch_host(sym.numpy(), a, backend="native",
+                                         device="cpu", mettab=met.numpy(),
+                                         delta=delta, maxcycles=mc)
+            k = {f: out[f].numpy() for f in ("success", "data", "metric",
+                                              "cycles", "maxnp")}
+            err = max(err, fano_equal({f: v[a] for f, v in k.items()},
+                                      {f: np.asarray(v)[a] for f, v in zip(
+                                          k, ref)},
+                                      f"{what}: path lanes vs native "
+                                      f"maxcycles={mc}"))
+            i = ~a
+            require(not k["success"][i].any() and (k["data"][i] == 0).all()
+                    and (k["metric"][i] == 0).all()
+                    and (k["cycles"][i] == 1).all()
+                    and (k["maxnp"][i] == 0).all(),
+                    f"{what}: inactive Fano lanes break the contract")
+            n_act += int(a.sum())
+            n_timeout += int((k["cycles"][a] >= mc * 81).sum())
+        log(f"[{what}] the path's own kernel inputs replayed: "
+            f"{len(self.select)} select_best calls ({n_sel} lanes) == "
+            f"select_best_plain (best bitwise, idx equal); "
+            f"{len(self.fano)} fano_decode calls ({n_act} active lanes, "
+            f"{n_timeout} full-budget timeouts) == native fano_native.cc "
+            f"(bit-exact), inactive lanes to contract; "
+            f"{time.perf_counter() - t0:.2f} s")
+        REPLAYED[what] = {"select_calls": len(self.select),
+                          "select_lanes": n_sel,
+                          "fano_calls": len(self.fano),
+                          "fano_active_lanes": n_act,
+                          "fano_timeouts": n_timeout,
+                          "fano_max_abs_err": err}
+
+
+REPLAYED = {}           # path -> the kernel calls its replay held to oracles
+
+
+def path_run(dec, ri_c, kernels, what):
+    """One decode of the path with every count set to 0 just before it and
+    read just after: the path's kernels launched, no plain version called;
+    then every selection and Fano call of that decode replayed against its
+    oracle (KernelCalls.replay). Returns (packed output, launches, the
+    recorded calls)."""
+    import torch
+    with KernelCalls() as calls:
+        reset_all_counters()
+        out = dec.decode_windows_ri(ri_c)
+        torch.cuda.synchronize()
+        launches, plain = read_counters()
+    log(f"[{what}] launches in one decode: {launches}; plain calls: "
+        f"{plain}")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{what}: a kernel of the path was not launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"{what}: a plain version ran on the path: {plain}")
+    calls.replay(what)
+    return out, launches, calls
+
+
+def phase_wideband(card):
+    """The wideband configuration (the GNU Radio block's default
+    halfbandwidth 187: the whole 512-bin spectrum, C = 200) at W = 32."""
+    import dataclasses
+
+    import torch
+
+    from uwspr_tpu_torch.config import (CoarseConfig, PipelineConfig,
+                                        with_serving_defaults)
+    from uwspr_tpu_torch.pipeline.decoder import WindowDecoder
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    ri, expected = wideband_windows()
+    ri_c = torch.from_numpy(ri).cuda()
+    coarse = CoarseConfig(halfbandwidth=187, maxfreqs=200)
+    cfg = with_serving_defaults(PipelineConfig(coarse=coarse), WB_WINDOWS)
+    dec = DeviceDecoder(cfg, device="cuda")
+    d = cfg.demod
+    log(f"[wideband] hpbm {cfg.coarse.hpbm}, C = {dec.n_cand}, columns "
+        f"{dec._cols}, caps cand/refine/fano {d.cand_compact_lanes}/"
+        f"{d.refine_max_lanes}/{d.fano_compact_lanes}, stft "
+        f"{cfg.coarse.stft_impl}, grid auto (einsum, bf16)")
+    t0 = time.perf_counter()
+    dec.decode_windows_ri(ri_c)
+    torch.cuda.synchronize()
+    log(f"[wideband] warm-up decode of {WB_WINDOWS} windows: "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, calls = path_run(dec, ri_c, ("select_best",
+                                                "fano_decode"), "wideband")
+    peak = torch.cuda.max_memory_allocated()
+    a = out.cpu().numpy()
+    require(a.shape == (WB_WINDOWS, 200, 23) and bool(np.isfinite(a).all()),
+            f"wideband output shape {a.shape} or non-finite values")
+    typed = dec.unpack_output(a)
+    found = [set(dec.messages(typed.window(w))) for w in range(WB_WINDOWS)]
+    n_dec = sum(len(found[w] & expected[w]) for w in range(WB_WINDOWS))
+    n_exp = sum(len(e) for e in expected)
+    extra = sum(len(found[w] - expected[w]) for w in range(WB_WINDOWS))
+    log(f"[wideband] {n_dec}/{n_exp} frames decoded, {extra} other "
+        f"messages; fano_attempts {int(typed.fano_attempts.sum())}, "
+        f"fano_overflow {int(typed.fano_overflow.sum())}; peak device "
+        f"memory {peak / 2**20:.1f} MiB")
+    require(n_dec == n_exp, f"wideband: only {n_dec}/{n_exp} decoded")
+
+    pdec = DeviceDecoder(with_serving_defaults(PipelineConfig(
+        coarse=dataclasses.replace(coarse, stft_impl="pallas")), WB_WINDOWS),
+        device="cuda")
+    pdec.decode_windows_ri(ri_c)
+    pout, plaunches, _ = path_run(pdec, ri_c, ("stft_power", "select_best",
+                                               "fano_decode"),
+                                  "wideband pallas")
+    ptyped = pdec.unpack_output(pout)
+    require([set(pdec.messages(ptyped.window(w))) for w in range(WB_WINDOWS)]
+            == found, "wideband: the pallas STFT gives other message sets")
+    log(f"[wideband] stft_impl='pallas': the same message sets, STFT kernel "
+        f"at ({WB_WINDOWS}, 348, 512)")
+
+    z_all = torch.complex(ri_c[:, 0], ri_c[:, 1])
+    (grid, is_nl, _, _, _), = calls.select      # the path's own grid
+    grid, is_nl = grid.cuda(), is_nl.cuda()
+
+    hdec = WindowDecoder(PipelineConfig(coarse=coarse), device="cuda")
+    for w in range(WB_HOST):
+        hs = {s.message for s in hdec(ri[w, 0] + 1j * ri[w, 1]).spots}
+        require(hs == found[w], f"wideband window {w}: host engine "
+                f"{sorted(hs)} against device {sorted(found[w])}")
+    log(f"[wideband] host engine WindowDecoder(PipelineConfig(coarse=...)), "
+        f"{WB_HOST} windows: the device engine's message sets")
+
+    turns = [decode_timed(d_, ri_c, 2)[1:] for d_ in (dec, pdec, pdec, dec)]
+    ms = {"auto": [turns[0], turns[3]], "pallas": [turns[1], turns[2]]}
+    for k, v in ms.items():
+        log(f"[wideband] {card}: stft {k}: "
+            f"{sum(t[0] for t in v) / 2:.4f} ms/window by CUDA events, "
+            f"{sum(t[1] for t in v) / 2:.4f} wall (turns "
+            f"{', '.join(f'{t[0]:.4f}/{t[1]:.4f}' for t in v)}; 2 batches "
+            f"of {WB_WINDOWS} each)")
+    return {"launches": launches, "pallas_launches": plaunches,
+            "grid": grid, "is_nl": is_nl, "z": z_all,
+            "stft": (dec._cols, dec._stft_consts),
+            "ms": {k: sum(t[0] for t in v) / 2 for k, v in ms.items()},
+            "wall_ms": {k: sum(t[1] for t in v) / 2 for k, v in ms.items()},
+            "peak_mib": peak / 2**20, "decoded": f"{n_dec}/{n_exp}"}
+
+
+# ---------------------------------------------------------------- phase 12
+
+OSD_WINDOWS = 32
+OSD_SNR_DB = -30.0
+OSD_HOST_LANES = 16     # rescue lanes held to the host osd_decode
+
+
+def deep_windows(seed: int = 5):
+    """scripts/bench_matrix.py:157-205's deep-SNR recipe at OSD_SNR_DB:
+    one "VE3EMB FN25 30" frame per window (seeded afresh)."""
+    from uwspr_tpu_torch.io.channel import awgn
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    rng = np.random.default_rng(seed)
+    wins = []
+    for _ in range(OSD_WINDOWS):
+        z = synthesize_frame("VE3EMB", "FN25", 30,
+                             start_sample=int(rng.integers(0, 2000)),
+                             freq_offset=float(rng.uniform(-5, 5)))
+        wins.append(awgn(z, OSD_SNR_DB, rng=rng))
+    return to_ri(np.stack(wins))
+
+
+def profile_call(fn):
+    """fn() under torch.profiler, after one warm-up call the trace leaves
+    out: (wall ms, kernel launches, kernel ms, the three kernels with the
+    most device time as (name, ms, count))."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(
+                         str(path))) as prof:
+            for i in range(2):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                prof.step()
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by = {}
+    for e in kernels:
+        t, n = by.get(e["name"], (0.0, 0))
+        by[e["name"]] = (t + float(e["dur"]) / 1e3, n + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:3]
+    return (wall, len(kernels), sum(t for t, _ in by.values()),
+            [(k[:60], round(t, 3), n) for k, (t, n) in top])
+
+
+def phase_osd(card):
+    """On-device OSD at order 4 against the same windows with OSD off."""
+    import torch
+
+    from uwspr_tpu_torch.config import (DemodConfig, PipelineConfig,
+                                        with_serving_defaults)
+    from uwspr_tpu_torch.fec.osd import osd_decode
+    from uwspr_tpu_torch.pipeline import device_decoder as ddm
+    ri_c = torch.from_numpy(deep_windows()).cuda()
+    on = ddm.DeviceDecoder(with_serving_defaults(PipelineConfig(
+        demod=DemodConfig(osd_depth=4)), OSD_WINDOWS), device="cuda")
+    off = ddm.DeviceDecoder(with_serving_defaults(PipelineConfig(),
+                                                  OSD_WINDOWS), device="cuda")
+    for d_ in (on, off):
+        d_.decode_windows_ri(ri_c)
+    # the rescue's lanes, as the decoder hands them to osd_torch
+    captured = []
+    decode_lanes = ddm.osd_decode_lanes
+
+    def recording(lanes, G, order):
+        captured.append((lanes.clone(), order))
+        return decode_lanes(lanes, G, order)
+    ddm.osd_decode_lanes = recording
+    try:
+        out_on, launches, _ = path_run(on, ri_c, ("select_best",
+                                                  "fano_decode"), "osd")
+    finally:
+        ddm.osd_decode_lanes = decode_lanes
+    ton = on.unpack_output(out_on)
+    toff = off.unpack_output(off.decode_windows_ri(ri_c))
+    s = toff.success
+    require(bool(ton.success[s].all()) and np.array_equal(
+        ton.payload[s], toff.payload[s]) and not ton.osd[s].any(),
+            "osd: a Fano decode of the OSD-off run was not kept")
+    spots = [sp for w in range(OSD_WINDOWS) for sp in on.spots(ton.window(w))]
+    tagged = [sp for sp in spots if sp.osd > 0]
+    fano_ok = sum(EXPECTED in off.messages(toff.window(w))
+                  for w in range(OSD_WINDOWS))
+    both_ok = sum(EXPECTED in on.messages(ton.window(w))
+                  for w in range(OSD_WINDOWS))
+    log(f"[osd] {OSD_WINDOWS} windows at {OSD_SNR_DB} dB: Fano alone "
+        f"{fano_ok}/{OSD_WINDOWS}, with order-4 device OSD {both_ok}/"
+        f"{OSD_WINDOWS}; {len(tagged)} OSD-tagged spots "
+        f"{sorted({sp.message for sp in tagged})}; fano_overflow "
+        f"{int(ton.fano_overflow.sum())}")
+    require(len(tagged) >= 1, "osd: no OSD-tagged spot")
+    require(all(sp.message == EXPECTED for sp in tagged),
+            "osd: an OSD-tagged spot is not the transmitted message")
+    require(len(captured) == 1 and captured[0][1] == 4,
+            f"osd: {len(captured)} OSD batches")
+    lanes = captured[0][0]
+    G = on._osd_G
+    u, q, m, f = decode_lanes(lanes, G, 4)
+    uc, qc, mc, fc = decode_lanes(lanes.cpu(), G.cpu(), 4)
+    require(all(torch.equal(a.cpu(), b) for a, b in
+                ((u, uc), (q, qc), (m, mc), (f, fc))),
+            "osd: osd_torch on the card differs from the CPU run")
+    lanes_np = lanes.cpu().numpy().astype(np.uint8)
+    dq = 0.0
+    for i in range(min(OSD_HOST_LANES, len(lanes_np))):
+        ref = osd_decode(lanes_np[i], order=4)
+        require(np.array_equal(u[i].cpu().numpy(), ref.info_bits)
+                and int(f[i]) == ref.flips,
+                f"osd: lane {i} differs from the host osd_decode")
+        dq = max(dq, abs(float(q[i]) - ref.quality),
+                 abs(float(m[i]) - ref.margin))
+    require(dq < 1e-3, f"osd: quality/margin {dq:.3g} from the host")
+    log(f"[osd] {len(lanes_np)} rescue lanes: osd_torch on the card == the "
+        f"CPU run (bits, quality, margin, flips); the first "
+        f"{min(OSD_HOST_LANES, len(lanes_np))} == host osd_decode order 4 "
+        f"(bits, flips; quality/margin within {dq:.3g})")
+    ms, turns, _ = time_turns([("osd", lambda: decode_lanes(lanes, G, 4))],
+                              {"osd": 3})
+    wall, nk, kms, top = profile_call(lambda: decode_lanes(lanes, G, 4))
+    log(f"[osd] {card}: the OSD stage under torch.profiler: wall "
+        f"{wall:.3f} ms, {nk} kernel launches, kernels {kms:.3f} ms (idle "
+        f"share {1 - kms / wall:.4f}); most device time: {top}")
+    dturns = [decode_timed(d_, ri_c)[1:] for d_ in (off, on, on, off)]
+    log(f"[osd] {card}: the OSD stage (osd_torch order 4 on {len(lanes_np)} "
+        f"lanes) {ms['osd']:.3f} ms (turns {fmt_turns(turns)}); decode "
+        f"ms/window by CUDA events off {(dturns[0][0] + dturns[3][0]) / 2:.4f}"
+        f", on {(dturns[1][0] + dturns[2][0]) / 2:.4f} (turns off/on/on/off "
+        f"{', '.join(f'{t[0]:.4f}/{t[1]:.4f}' for t in dturns)}, events/wall)")
+    return {"launches": launches, "osd_ms": ms["osd"],
+            "osd_kernel_launches": nk, "osd_kernel_ms": kms,
+            "osd_lanes": len(lanes_np), "fano_decoded": fano_ok,
+            "with_osd_decoded": both_ok, "osd_tagged": len(tagged),
+            "ms_off": (dturns[0][0] + dturns[3][0]) / 2,
+            "ms_on": (dturns[1][0] + dturns[2][0]) / 2}
+
+
+# ---------------------------------------------------------------- phase 13
+
+STRONG = ("VE3EMB", "FN25", 30)
+WEAK = ("K1ABC", "FN42", 37)
+
+
+def masked_scene(seed: int = 100, sep_hz: float = 1.5,
+                 weak_rel_db: float = -9.0, strong_snr: float = -13.0):
+    """tests/test_multipass.py:20-30: a strong frame at 0 Hz and a weak one
+    sep_hz away, weak_rel_db below it, in AWGN."""
+    from uwspr_tpu_torch.io.channel import awgn
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    rng = np.random.default_rng(seed)
+    strong = synthesize_frame(*STRONG, start_sample=int(rng.integers(500,
+                                                                     2500)),
+                              freq_offset=0.0)
+    weak = synthesize_frame(*WEAK, start_sample=int(rng.integers(500, 2500)),
+                            freq_offset=sep_hz)
+    return awgn(strong + 10.0 ** (weak_rel_db / 20.0) * weak, strong_snr,
+                rng=rng)
+
+
+def phase_multipass(card):
+    """StreamDecoder(passes=2) on the card, device and hybrid engines."""
+    import torch
+
+    from uwspr_tpu_torch.config import PipelineConfig
+    from uwspr_tpu_torch.pipeline.stream import StreamDecoder
+    z = masked_scene()
+    strong, weak = "VE3EMB FN25 30", "K1ABC FN42 37"
+    out = {}
+    for engine, kernels in (("device", ("select_best", "fano_decode")),
+                            ("hybrid", ("select_best",))):
+        res, ms, counts = {}, {}, {}
+        calls = KernelCalls()
+        for i, passes in enumerate((1, 2, 2, 1)):   # the first two: warm-up
+            sd = StreamDecoder(PipelineConfig(), engine=engine,
+                               passes=passes, device="cuda")
+            # the first passes=2 run records its kernel calls for the
+            # replay; the second run of each is the timed one
+            with calls if i == 1 else contextlib.nullcontext():
+                reset_all_counters()
+                t0 = time.perf_counter()
+                (_, r), = sd.push(z)
+                torch.cuda.synchronize()
+                ms[passes] = (time.perf_counter() - t0) * 1e3
+                res[passes] = r
+                counts[passes] = read_counters()
+        calls.replay(f"multipass {engine}")
+        launches, plain = counts[2]
+        require(all(launches[k] > 0 for k in kernels)
+                and all(v == 0 for v in plain.values()),
+                f"multipass {engine}: launches {launches}, plain {plain}")
+        two = [(s.message, s.pass_index) for s in res[2].spots]
+        one = [s.message for s in res[1].spots]
+        log(f"[multipass] {engine}: passes=2 {two}; passes=1 {one}; "
+            f"launches in the passes=2 run {launches}")
+        require(two == [(strong, 0), (weak, 1)],
+                f"multipass {engine}: passes=2 gave {two}")
+        require(weak not in one, f"multipass {engine}: passes=1 found the "
+                f"weak frame")
+        log(f"[multipass] {card}: {engine} engine, wall ms per window "
+            f"passes=2 {ms[2]:.3f}, passes=1 {ms[1]:.3f} (second run of "
+            f"each)")
+        out[engine] = {"passes2_ms": ms[2], "passes1_ms": ms[1],
+                       "launches": launches}
+    return out
+
+
+# ---------------------------------------------------------------- phase 14
+
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
 # the card's own limit is printed beside every time): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
@@ -1463,14 +1970,15 @@ def host_grid(hdec, ri):
     return grid.contiguous(), cs._is_nl
 
 
-def timing_select(dec, scene, hdec, ri, card):
+def timing_select(dec, scene, hdec, ri, card, wide):
     import torch
 
     from uwspr_tpu_torch.ops import select as sel
     thr = float(dec.config.coarse.threshold)
     out = {}
     for name, (grid, is_nl) in (("device", (scene, dec.state["is_nl"])),
-                                ("host", host_grid(hdec, ri))):
+                                ("host", host_grid(hdec, ri)),
+                                ("wideband", (wide["grid"], wide["is_nl"]))):
         ms, turns, outs = time_turns(
             [("plain", lambda: sel.select_best_plain(grid, is_nl,
                                                      threshold=thr)),
@@ -1632,16 +2140,18 @@ def timing_probe(card, z_ri, cases):
     return out
 
 
-def timing_stft(card, z, kw, stft_inputs):
+def timing_stft(card, z_main, kw, stft_inputs, wide):
     import torch
 
     from uwspr_tpu_torch.device import exact_f32
     from uwspr_tpu_torch.ops import stft
     out = {}
-    B, fl = z.shape
     size, hop, n = kw["size"], kw["hop"], kw["n_ffts"]
-    for name in ("column window", "full width"):
-        col, consts = stft_inputs[name]
+    cases = {name: (z_main,) + stft_inputs[name]
+             for name in ("column window", "full width")}
+    cases["wideband full width"] = (wide["z"],) + wide["stft"]
+    for name, (z, col, consts) in cases.items():
+        B, fl = z.shape
         w = consts["window"]
 
         def run(impl):
@@ -1700,15 +2210,19 @@ def main() -> int:
     host_launches, _ = phase_host_slice(card, hdec, ri)
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
     ring_launches, htod, stream, ring = phase_runtimes(card)
+    wide = phase_wideband(card)
+    osd = phase_osd(card)
+    multi = phase_multipass(card)
 
-    sels = timing_select(dec, scene, hdec, ri, card)
+    sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
     probes = timing_probe(card, z_ri, cases)
-    stfts = timing_stft(card, z, kw, stft_inputs)
+    stfts = timing_stft(card, z, kw, stft_inputs, wide)
     runtimes = timing_runtimes(card, stream, ring, htod)
     sel = sels["device"]
-    sel["other_shapes"] = {"host": {f: sels["host"][f] for f in (
-        "shape", "ms", "plain_ms", "bound_ms", "library_ms")}}
+    sel["other_shapes"] = {k: {f: sels[k][f] for f in (
+        "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
+        for k in ("host", "wideband")}
     prb = probes["soft symbols (L=17, F=1)"]
     stf = stfts["column window"]
     prb["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",
@@ -1717,15 +2231,36 @@ def main() -> int:
     stf["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",
                                                   "bound_ms", "library_ms")}
                            for k, v in stfts.items() if v is not stf}
+    paths = {"device": launches, "host": host_launches,
+             "pallas": pallas_launches, "ring": ring_launches,
+             "wideband": wide["launches"],
+             "wideband_pallas": wide["pallas_launches"],
+             "osd": osd["launches"],
+             "multipass_device": multi["device"]["launches"],
+             "multipass_hybrid": multi["hybrid"]["launches"]}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
                       (stf, pallas_launches["stft_power"], stft_err)):
         e["launches"] = n
         e["ring_launches"] = ring_launches[e["name"]]
+        e["path_launches"] = {k: v[e["name"]] for k, v in paths.items()}
         e["max_abs_err"] = max(e["max_abs_err"], err)
-    print(json.dumps({"runtimes": runtimes, "htod_bytes_per_hop": htod}),
-          flush=True)
+    fan["max_abs_err"] = max([fan["max_abs_err"]] + [
+        r["fano_max_abs_err"] for r in REPLAYED.values()])
+    fan["path_replays"] = {k: {f: r[f] for f in (
+        "fano_calls", "fano_active_lanes", "fano_timeouts")}
+        for k, r in REPLAYED.items()}
+    sel["path_replays"] = {k: {f: r[f] for f in (
+        "select_calls", "select_lanes")} for k, r in REPLAYED.items()}
+    print(json.dumps({"runtimes": runtimes, "htod_bytes_per_hop": htod,
+                      "wideband": {k: wide[k] for k in (
+                          "ms", "wall_ms", "peak_mib", "decoded")},
+                      "osd": {k: v for k, v in osd.items()
+                              if k != "launches"},
+                      "multipass": {k: {f: v[f] for f in (
+                          "passes2_ms", "passes1_ms")}
+                          for k, v in multi.items()}}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ import torch
 from test_torch_copies import jax_config
 from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
 from uwspr_tpu_torch import params
-from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig, PipelineConfig,
+from uwspr_tpu_torch.config import (DemodConfig, PipelineConfig,
                                     with_serving_defaults)
 from uwspr_tpu_torch.io.channel import awgn, noise_sigma
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
@@ -38,7 +38,7 @@ CFG = with_serving_defaults(PipelineConfig(demod=DemodConfig(maxcycles=2000)),
 STATE_ATTRS = {"offsets": "_offsets", "is_nl": "_is_nl",
                "model_drift": "_model_drift", "model_slm": "_model_slm",
                "sign": "_sign", "sync_bit": "_sync_bit", "mettab": "_mettab",
-               "perm": "_perm", "jiggles": "_jiggles"}
+               "perm": "_perm", "jiggles": "_jiggles", "osd_G": "_osd_G"}
 
 
 def scene(seed=0):
@@ -91,18 +91,35 @@ def test_slice_matches_jax(jax_run, port_run):
     np.testing.assert_allclose(t.sync[s], j.sync[s], atol=1e-3)
 
 
-def test_state_carried_from_jax(jax_run, port_run):
+def jax_state(jdec, cfg):
+    return {k: np.asarray(getattr(jdec, STATE_ATTRS[k]))
+            for k in params.state_keys(cfg)}
+
+
+def test_state_carried_from_jax(jax_run, port_run, osd_runs):
     """The constants read off a JAX DeviceDecoder equal the port's own
-    construction, and a decoder built from them decodes identically."""
+    construction, and a decoder built from them decodes identically; with
+    on-device OSD on, the state also carries the OSD generator matrix."""
     jdec, _ = jax_run
     tdec, ta = port_run
-    d = {k: np.asarray(getattr(jdec, a)) for k, a in STATE_ATTRS.items()}
+    d = jax_state(jdec, CFG)
     own = params.state_numpy(CFG)
-    for k in params.STATE_SPEC:
+    assert set(d) == set(own) and "osd_G" not in own
+    for k in d:
         np.testing.assert_array_equal(d[k], own[k], err_msg=k)
     dec = DeviceDecoder(CFG, device="cpu", state=d)
     np.testing.assert_array_equal(
         dec.decode_windows_ri(torch.from_numpy(RI)).numpy(), ta)
+    jo, to = osd_runs["jax_dec"], osd_runs["port_dec"]
+    d = jax_state(jo, OSD_CFG)
+    own = params.state_numpy(OSD_CFG)
+    assert set(d) == set(own) and "osd_G" in own
+    for k in d:
+        np.testing.assert_array_equal(d[k], own[k], err_msg=k)
+    dec = DeviceDecoder(OSD_CFG, device="cpu", state=d)
+    np.testing.assert_array_equal(
+        dec.decode_windows_ri(torch.from_numpy(OSD_RI)).numpy(),
+        osd_runs["port_packed"])
 
 
 def test_state_validation():
@@ -123,22 +140,11 @@ def test_pack_roundtrip(port_run):
     assert (out.osd == 0).all()
 
 
-@pytest.mark.parametrize("what", ["wideband", "einsum_grid", "osd",
-                                  "truncate"])
+@pytest.mark.parametrize("what", ["truncate"])
 def test_outside_slice_raises(what):
-    cfg, kw = CFG, {}
-    d, c = CFG.demod, CFG.coarse
-    if what == "wideband":
-        cfg = with_serving_defaults(
-            PipelineConfig(coarse=CoarseConfig(halfbandwidth=187)), 2)
-    elif what == "einsum_grid":
-        cfg = dc.replace(CFG, coarse=dc.replace(c, grid_impl="einsum"))
-    elif what == "osd":          # on-device OSD; the hybrid engine runs it
-        cfg = dc.replace(CFG, demod=dc.replace(d, osd_depth=2))
-    else:
-        kw = {"truncate_stage": "post_fano"}
+    """truncate_stage is not ported (CUDA events split the stages)."""
     with pytest.raises(NotImplementedError):
-        DeviceDecoder(cfg, device="cpu", **kw)
+        DeviceDecoder(CFG, device="cpu", truncate_stage="post_fano")
 
 
 # ------------------------------------------------ paths without compaction
@@ -270,6 +276,112 @@ def test_pallas_stft_slice_matches_jax(jax_run, port_run):
     np.testing.assert_array_equal(ta, port_run[1])
 
 
+# ------------------------------------------------------------ on-device OSD
+#
+# The scenes of tests/test_osd.py:184-222 at maxcycles 1 (every Fano lane
+# fails) and 3 jiggles: the OSD rescues each frame, tagged with its order.
+# Equal to the JAX DeviceDecoder per window (__call__) and batched: success,
+# payload, osd, jiggle, fano_overflow and the rest of assert_outputs_match.
+
+OSD_CFG = PipelineConfig(demod=DemodConfig(maxcycles=1, n_jiggles=3,
+                                           osd_depth=2))
+MSG = "VE3EMB FN25 30"
+
+
+def osd_windows():
+    rng = np.random.default_rng(22)
+    return np.stack([
+        awgn(synthesize_frame("VE3EMB", "FN25", 30, start_sample=300 * w,
+                              freq_offset=float(w) - 1.0), -18.0, rng=rng)
+        for w in range(3)])
+
+
+OSD_Z = osd_windows()
+OSD_RI = np.stack([OSD_Z.real, OSD_Z.imag], axis=1).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def osd_runs():
+    jdec = JaxDecoder(jax_config(OSD_CFG))
+    tdec = DeviceDecoder(OSD_CFG, device="cpu")
+    return {"jax_dec": jdec, "port_dec": tdec,
+            "jax": jdec.decode_batch(OSD_Z),
+            "port": tdec.decode_batch(OSD_Z),
+            "port_packed": tdec.decode_windows_ri(
+                torch.from_numpy(OSD_RI)).numpy()}
+
+
+def as_batch(out):
+    """One window's output as a batch of one."""
+    return dc.replace(out, **{f.name: np.asarray(getattr(out, f.name))[None]
+                              for f in dc.fields(out)})
+
+
+def test_device_osd_batch_matches_jax(osd_runs):
+    j, t, tdec = osd_runs["jax"], osd_runs["port"], osd_runs["port_dec"]
+    assert_outputs_match(t, j, tdec)
+    for w in range(3):
+        by = {s.message: s for s in tdec.spots(t.window(w))}
+        assert by[MSG].osd == 2
+    assert (t.osd[t.success] == 2).all()
+
+
+def test_device_osd_call_matches_jax(osd_runs):
+    """The per-window program (tests/test_osd.py:184-202's window)."""
+    rng = np.random.default_rng(21)
+    z = awgn(synthesize_frame("VE3EMB", "FN25", 30, start_sample=500,
+                              freq_offset=1.0), -18.0, rng=rng)
+    j = osd_runs["jax_dec"](z)
+    t = osd_runs["port_dec"](z)
+    tdec = osd_runs["port_dec"]
+    assert_outputs_match(as_batch(t), as_batch(j), tdec)
+    assert [(s.message, s.osd) for s in tdec.spots(t)] == [(MSG, 2)]
+
+
+def test_device_osd_lane_cap_matches_jax():
+    """osd_max_lanes 1 over 3 windows: one lane of the batch is rescued,
+    the other two failed lanes are dropped and counted in fano_overflow,
+    as in the JAX decoder."""
+    cfg = dc.replace(OSD_CFG, demod=dc.replace(OSD_CFG.demod,
+                                               osd_max_lanes=1))
+    j, t, tdec = run_both(cfg, OSD_RI)
+    assert_outputs_match(t, j, tdec)
+    assert int(t.fano_overflow.sum()) >= 2
+    assert int((t.osd > 0).sum()) == 1
+
+
+def test_device_osd_noise_window_yields_no_spots():
+    """tests/test_osd.py:167-181: a noise-only window gives no spots."""
+    rng = np.random.default_rng(33)
+    sigma = noise_sigma(-14.0)
+    z = (rng.normal(scale=sigma, size=45000)
+         + 1j * rng.normal(scale=sigma, size=45000)).astype(np.complex64)
+    cfg = PipelineConfig(demod=DemodConfig(maxcycles=64, n_jiggles=3,
+                                           osd_depth=2))
+    tdec = DeviceDecoder(cfg, device="cpu")
+    assert tdec.spots(tdec(z)) == []
+
+
+def test_call_runs_the_per_window_program():
+    """__call__ ignores the batch knobs and caps each Fano phase at
+    fano_max_lanes, as the JAX __call__ does: at maxcycles 1 the signal
+    window gates 16 jiggle retries, 4 are decoded and 12 are counted in
+    fano_overflow, while the batch path (cand_compact_lanes 1, never-drop
+    Fano chunks) drops no Fano lane."""
+    cfg = PipelineConfig(demod=DemodConfig(
+        maxcycles=1, fano_max_lanes=4, fano_compact_lanes=8,
+        cand_compact_lanes=1, refine_max_lanes=1))
+    z = RI[0, 0] + 1j * RI[0, 1]
+    jdec = JaxDecoder(jax_config(cfg))
+    tdec = DeviceDecoder(cfg, device="cpu")
+    j, t = jdec(z), tdec(z)
+    assert_outputs_match(as_batch(t), as_batch(j), tdec)
+    assert int(t.fano_overflow) == 12 and int(t.fano_attempts) > 4
+    b = tdec.decode_batch(z[None]).window(0)
+    assert int(b.fano_overflow) == 0
+    assert tdec.config.demod.cand_compact_lanes == 1
+
+
 def test_cuda_request_without_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
@@ -318,6 +430,17 @@ print("ring", [s.message for _, r in ring.push(np.concatenate([pad, z]))
 sd = StreamDecoder(plain, engine="device", device="cpu")
 print("stream", [s.message for _, r in sd.push(np.concatenate([z, pad]))
                  for s in r.spots])
+osd = DeviceDecoder(PipelineConfig(demod=DemodConfig(
+    maxcycles=1, n_jiggles=3, osd_depth=2)), device="cpu")  # device OSD
+print("osd", [(s.message, s.osd) for s in osd.spots(osd(z))])
+wide = DeviceDecoder(PipelineConfig(
+    coarse=CoarseConfig(halfbandwidth=187, maxfreqs=16),
+    demod=DemodConfig(maxcycles=200, n_jiggles=3)), device="cpu")
+print("wideband", wide.messages(wide(z)))
+mp = StreamDecoder(plain, engine="device", passes=2, device="cpu")
+print("passes", [(s.message, s.pass_index)
+                 for _, r in mp.push(np.concatenate([z, pad]))
+                 for s in r.spots])
 leaked = sorted(m for m in sys.modules if m.startswith("jax")
                 or m == "uwspr_tpu" or m.startswith("uwspr_tpu."))
 assert not leaked, leaked
@@ -338,6 +461,9 @@ def test_port_never_imports_jax(tmp_path):
     assert "host ['VE3EMB FN25 30']" in proc.stdout
     assert "ring ['VE3EMB FN25 30']" in proc.stdout
     assert "stream ['VE3EMB FN25 30']" in proc.stdout
+    assert "osd [('VE3EMB FN25 30', 2)]" in proc.stdout
+    assert "wideband ['VE3EMB FN25 30']" in proc.stdout
+    assert "passes [('VE3EMB FN25 30', 0)]" in proc.stdout
 
 
 def test_entry_points_take_only_port_configs():

@@ -221,10 +221,26 @@ def test_engine_follows_the_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tstream.StreamDecoder(CFG, device="cuda")
-    with pytest.raises(NotImplementedError, match="multipass"):
-        tstream.StreamDecoder(CFG, passes=2, device="cpu")
+    assert tstream.StreamDecoder(CFG, passes=2, device="cpu").passes == 2
     with pytest.raises(ValueError, match="engine"):
         tstream.StreamDecoder(CFG, engine="tpu", device="cpu")
+
+
+def test_device_engine_runs_the_per_window_program(one_channel,
+                                                   port_device_run):
+    """The device engine decodes each window with DeviceDecoder.__call__,
+    which ignores the batch knobs (as the JAX StreamDecoder's does): set to
+    caps that would drop lanes in a batch, they change no spot and no
+    count."""
+    _, base = port_device_run
+    cfg = PipelineConfig(demod=DemodConfig(
+        maxcycles=2000, cand_compact_lanes=1, refine_max_lanes=1,
+        fano_compact_lanes=4))
+    got = feed(tstream.StreamDecoder(cfg, engine="device", device="cpu"),
+               one_channel)
+    assert spot_keys(got) == spot_keys(base)
+    assert [(r.n_candidates, r.n_fano_attempts) for _, r in got] == [
+        (r.n_candidates, r.n_fano_attempts) for _, r in base]
 
 
 def test_checkpoint_resume(tmp_path, one_channel, port_device_run):

@@ -7,9 +7,9 @@ Counterpart of uwspr_tpu/coarse/search.py. ``build_drift_models``,
 carried over because their JAX module imports jax. The sync grid has both
 forms of ``coarse_score_grid``: ``conv`` (search.py:259-294, the narrowband
 device path), one dilated 2-D correlation per A/B powersum plane, and the
-f32 im2col ``einsum`` (search.py:295-339) that the host ``CoarseSearch``
-uses. The drift-model selection lives in ``uwspr_tpu_torch.ops.select``
-(the CUDA kernel and its plain version).
+im2col ``einsum`` (search.py:295-339) that the host ``CoarseSearch`` and
+the wideband device engine use. The drift-model selection lives in
+``uwspr_tpu_torch.ops.select`` (the CUDA kernel and its plain version).
 """
 
 from __future__ import annotations
@@ -33,6 +33,9 @@ MODE_NONLINEAR = 1
 # offsets d in [-4, 4] cover every drift model at the defaults
 _D_MIN, _D_MAX = -6, 6
 _N_SHIFTS = _D_MAX - _D_MIN + 1
+# bytes of im2col copies per chunk of windows (113 MB per window at full
+# width in float32, 3.6 GB per plane at W = 32)
+_IM2COL_BYTES = 1 << 30
 
 
 @dataclass
@@ -180,8 +183,11 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
     Both run under ``exact_f32`` on the card (no TF32). ``dtype="bf16"``
     rounds the A/B planes to bf16 (the one-hot +-1/0 weights are exact) and
     still accumulates in f32. ``f_window=(lo, hi)`` scores only columns
-    [lo, hi). Candidate columns if0 + (-2..2) index like numpy, so a padded
-    lane at bin 0 wraps to the top columns as in the JAX code."""
+    [lo, hi). Candidate columns if0 + (-2..2) index as the JAX gather does:
+    a negative column wraps once (a padded lane at bin 0 reads the top
+    columns) and then every column clamps to the window (at wideband a lane
+    at the top bin reaches past it). The einsum builds its im2col copies
+    for at most _IM2COL_BYTES of windows at a time."""
     if impl not in ("conv", "einsum"):
         raise ValueError(f"coarse grid impl {impl!r}")
     size = ps.shape[-1]
@@ -198,7 +204,9 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
     onehot = F.one_hot((offsets - _D_MIN).long(), _N_SHIFTS).float()
     W_ss = onehot * sync_sign.float()[None, :, None]            # (M,162,D)
     # per-candidate frequency gather ifr = if0 + (-2..2), window relative
+    width = hi - lo
     ifr = (if0[..., None] + torch.arange(-2, 3, device=ps.device) - lo).long()
+    ifr = torch.where(ifr < 0, ifr + width, ifr).clamp(0, width - 1)
     bidx = torch.arange(ps.shape[0], device=ps.device)[:, None, None]
     if impl == "conv":
         Ax = F.pad(A, (_D_MAX, -_D_MIN))[:, None]              # (B,1,n,w+12)
@@ -211,18 +219,23 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
     n = ps.shape[-2]
     if n < 2 * 162 + n_lags - 2:
         raise ValueError(f"{n} spectrum rows are too few for {n_lags} lags")
-    width = A.shape[-1]
 
-    def im2col(X):                  # (B, n, w) -> (B, lags, 162, D, w)
+    def im2col(X):                  # (b, n, w) -> (b, lags, 162, D, w)
         pad = F.pad(X, (_N_SHIFTS, _N_SHIFTS))
         off0 = _D_MIN + _N_SHIFTS
         S = torch.stack([pad[..., d + off0:d + off0 + width]
-                         for d in range(_N_SHIFTS)], dim=-2)   # (B,n,D,w)
+                         for d in range(_N_SHIFTS)], dim=-2)   # (b,n,D,w)
         return torch.stack([S[:, k0:k0 + 2 * 162:2] for k0 in range(n_lags)],
                            dim=1)
-    ss = torch.einsum("mkd,bwkdf->bwmf", W_ss, im2col(A))      # (B,w,M,f)
-    pw = torch.einsum("mkd,bwkdf->bwmf", onehot, im2col(B))
-    return (ss[bidx, :, :, ifr] / pw[bidx, :, :, ifr]).float()  # (B,C,5,w,M)
+    step = max(1, _IM2COL_BYTES // (n_lags * 162 * _N_SHIFTS * width * 4))
+    out = []
+    for b0 in range(0, ps.shape[0], step):
+        sl = slice(b0, b0 + step)
+        ss = torch.einsum("mkd,bwkdf->bwmf", W_ss, im2col(A[sl]))  # (b,w,M,f)
+        pw = torch.einsum("mkd,bwkdf->bwmf", onehot, im2col(B[sl]))
+        bi, fi = bidx[:ss.shape[0]], ifr[sl]
+        out.append(ss[bi, :, :, fi] / pw[bi, :, :, fi])          # (b,C,5,w,M)
+    return torch.cat(out).float()
 
 
 class CoarseSearch:

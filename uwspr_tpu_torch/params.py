@@ -13,10 +13,16 @@ named here after those attributes without the leading underscore:
     mettab       (2, 256) int32  Fano metric table
     perm         (162,)   int    interleave permutation
     jiggles      (J,)     int32  retry lag offsets
+    osd_G        (162, 50) int32 OSD generator matrix (0/1), only when
+                                 on-device OSD is on (``state_keys(config)``)
 
+These are the numpy arrays, typed as the JAX decoder holds them.
 ``state_numpy(config)`` builds them the way the JAX decoder does;
-``state_from_numpy(d, device)`` turns such a dict (for example one read off
-a JAX ``DeviceDecoder``) into the port's tensors on ``device``.
+``state_from_numpy(d, device, keys=state_keys(config))`` turns such a dict
+(for example one read off a JAX ``DeviceDecoder``) into the port's tensors
+on ``device``, with the torch dtype of ``STATE_SPEC``: osd_G becomes
+float32 0/1 there, the operand of ``fec/osd_torch.py``'s f32 GF(2)
+products.
 
 The host engine (``pipeline/decoder.py::WindowDecoder``) carries the
 drift-bank part only, ``HOST_STATE_KEYS``: ``host_state_numpy(config)``
@@ -35,6 +41,7 @@ from uwspr_tpu_torch.coarse.search import DriftModelBank, build_drift_models
 from uwspr_tpu_torch.config import PipelineConfig
 from uwspr_tpu_torch.demod.finesync import jiggle_offsets
 from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.fec.osd import generator_matrix
 from uwspr_tpu_torch.protocol.constants import (
     FANO_METTAB,
     INTERLEAVE_PERM,
@@ -52,14 +59,26 @@ STATE_SPEC = {
     "mettab": ("i", torch.int32),
     "perm": ("i", torch.int64),
     "jiggles": ("i", torch.int64),
+    "osd_G": ("i", torch.float32),
 }
 HOST_STATE_KEYS = ("offsets", "is_nl", "model_drift", "model_slm", "jiggles")
+
+
+def state_keys(config: PipelineConfig | None = None) -> tuple[str, ...]:
+    """The state a DeviceDecoder of ``config`` carries: osd_G only when
+    on-device OSD is on, osd_depth > 0 and osd_max_lanes > 0
+    (jit_decoder.py:127-134)."""
+    d = (config or PipelineConfig()).demod
+    osd = d.osd_depth > 0 and d.osd_max_lanes > 0
+    return tuple(k for k in STATE_SPEC if k != "osd_G" or osd)
 
 
 def state_numpy(config: PipelineConfig) -> dict[str, np.ndarray]:
     """The constants of jit_decoder.py:113-137 for ``config``."""
     models = build_drift_models(config.coarse)
     dcfg = config.demod
+    osd = ({"osd_G": np.asarray(generator_matrix(), np.int32)}
+           if "osd_G" in state_keys(config) else {})
     return {
         "offsets": np.asarray(models.offsets),
         "is_nl": np.asarray(models.is_nonlinear),
@@ -70,15 +89,18 @@ def state_numpy(config: PipelineConfig) -> dict[str, np.ndarray]:
         "mettab": np.asarray(FANO_METTAB),
         "perm": np.asarray(INTERLEAVE_PERM),
         "jiggles": jiggle_offsets(dcfg.n_jiggles, dcfg.iifac),
+        **osd,
     }
 
 
 def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device,
-                     keys: tuple[str, ...] = tuple(STATE_SPEC)
+                     keys: tuple[str, ...] | None = None
                      ) -> dict[str, torch.Tensor]:
-    """Validate a state dict of numpy arrays holding exactly ``keys`` and
-    move it to ``device``."""
+    """Validate a state dict of numpy arrays holding exactly ``keys`` (by
+    default ``state_keys()``: a decoder without on-device OSD) and move it
+    to ``device``."""
     dev = resolve_device(device)
+    keys = state_keys() if keys is None else keys
     missing = set(keys) - set(d)
     extra = set(d) - set(keys)
     if missing or extra:
@@ -96,7 +118,7 @@ def state_from_numpy(d: dict[str, np.ndarray], device: str | torch.device,
     M = out["offsets"].shape[0]
     shapes = {"offsets": (M, 162), "is_nl": (M,), "model_drift": (M,),
               "model_slm": (M, 4), "sign": (162,), "sync_bit": (162,),
-              "mettab": (2, 256), "perm": (162,)}
+              "mettab": (2, 256), "perm": (162,), "osd_G": (162, 50)}
     for name, shape in shapes.items():
         if name in out and tuple(out[name].shape) != shape:
             raise ValueError(f"decoder state {name}: shape "
@@ -137,4 +159,4 @@ def host_bank(d: dict[str, np.ndarray]
 
 
 __all__ = ["HOST_STATE_KEYS", "STATE_SPEC", "host_bank", "host_state_numpy",
-           "host_state_of", "state_from_numpy", "state_numpy"]
+           "host_state_of", "state_from_numpy", "state_keys", "state_numpy"]

@@ -5,10 +5,12 @@ as its ``_decode_windows_batched`` (jit_decoder.py:698-730):
 
   STFT power (stft_impl "pallas": the fused CUDA kernel, computing only
   the columns read) -> smoothed SNR spectrum -> peak pick -> coarse sync
-  grid (conv) -> exact model selection (CUDA kernel) -> phase A/B probe
-  refinement -> joint fine grid, soft symbols over all jiggles, sync/rms
-  gates, deinterleave -> two-phase Fano (CUDA kernel) -> first success in
-  jiggle order -> packed (W, C, 23) float32.
+  grid (conv; the im2col einsum with bf16 operands when hpbm > 32) ->
+  exact model selection (CUDA kernel) -> phase A/B probe refinement ->
+  joint fine grid, soft symbols over all jiggles, sync/rms gates,
+  deinterleave -> two-phase Fano (CUDA kernel) -> first success in jiggle
+  order -> on-device OSD of the worth candidates whose gated lanes all
+  failed (osd_depth > 0, fec/osd_torch.py) -> packed (W, C, 23) float32.
 
 The lanes the refinement runs on: with cand_compact_lanes > 0 the valid
 candidates gathered across the batch (_compact_cand_pre); otherwise all
@@ -16,24 +18,34 @@ W*C lanes, and with refine_max_lanes > 0 the post-worth tail on the worth
 lanes gathered across the batch (_compact_refine_tail). The Fano: with
 fano_compact_lanes > 0 never-drop chunks of gated lanes across the batch
 (_compact_fano); otherwise at most fano_max_lanes gated lanes per window
-and phase, the rest counted in fano_overflow. fano_mode "host" (the hybrid
-engine) stops after the gates and packs the soft symbols
-(_pack_prefano); ``host_fano_assemble`` runs the Fano on the host through
-``fec.host`` with ``config.fano_backend``, and host OSD when osd_depth > 0.
+and phase, the rest counted in fano_overflow. The OSD lanes: the failed lanes
+of the whole batch, compacted to osd_max_lanes (the rest counted in
+fano_overflow). fano_mode "host" (the hybrid engine) stops after the gates
+and packs the soft symbols (_pack_prefano); ``host_fano_assemble`` runs
+the Fano on the host through ``fec.host`` with ``config.fano_backend``,
+and host OSD when osd_depth > 0.
+
+``__call__`` decodes one window with the reference's per-window program
+(jit_decoder.py:594-696, :1214-1220): the batch path at W = 1 with the
+three batch knobs (cand_compact_lanes, refine_max_lanes,
+fano_compact_lanes) at 0, so every lane is refined, each Fano phase takes
+at most fano_max_lanes gated lanes and OSD is compacted over the window's
+C lanes.
 
 PyTorch runs eagerly, so the JAX decoder's vmap over windows is a batch
-dimension written out and its bounded while loops are host loops; the one
-device-to-host read per compacted Fano phase is the gated-lane count that
-sizes the chunk loop (and skips the Fano when nothing is gated).
+dimension written out and its bounded while loops are host loops; the
+device-to-host reads are the gated-lane count of each compacted Fano phase,
+which sizes the chunk loop (and skips the Fano when nothing is gated), and
+with OSD on the failed-lane count, which sizes the OSD batch (and skips it
+when no lane failed).
 
-Configurations outside the port raise NotImplementedError rather than
-running another code path: the wideband einsum grid (hpbm > 32 or
-grid_impl "einsum"), on-device OSD (osd_depth > 0 with osd_max_lanes > 0
-in fano_mode "device") and truncate_stage.
+truncate_stage is not ported (CUDA events split the stages,
+scripts/torch_stages.py) and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 
@@ -57,10 +69,11 @@ from uwspr_tpu_torch.device import exact_f32, resolve_device
 from uwspr_tpu_torch.fec.fano import fano_decode_batch
 from uwspr_tpu_torch.fec.host import check_backend, fano_decode_batch_host
 from uwspr_tpu_torch.fec.osd import accept_osd
+from uwspr_tpu_torch.fec.osd_torch import bits_to_payload, osd_decode_lanes
 from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
-from uwspr_tpu_torch.params import state_from_numpy, state_numpy
+from uwspr_tpu_torch.params import state_from_numpy, state_keys, state_numpy
 from uwspr_tpu_torch.pipeline.decoder import Spot
 from uwspr_tpu_torch.protocol.constants import FANO_METTAB
 from uwspr_tpu_torch.protocol.messages import unpack_message
@@ -86,7 +99,7 @@ class DeviceDecoderOutput:
     valid: np.ndarray
     fano_overflow: np.ndarray  # per window: lanes dropped by the lane caps
     fano_attempts: np.ndarray  # per window: gated (candidate, jiggle) lanes
-    osd: np.ndarray            # 0 = Fano decode, else the host OSD order
+    osd: np.ndarray            # 0 = Fano decode, else the OSD order
 
     def window(self, w: int) -> "DeviceDecoderOutput":
         return DeviceDecoderOutput(**{
@@ -98,22 +111,14 @@ FANO_MODES = ("device", "host")
 
 
 def check_slice(config: PipelineConfig, fano_mode: str = "device") -> None:
-    """Raise NotImplementedError for configurations this port does not run
-    (TypeError for a config that is not the port's own class)."""
+    """Raise TypeError for a config that is not the port's own class and
+    ValueError for an unknown fano_mode."""
     if not isinstance(config, PipelineConfig):
         raise TypeError(f"config must be uwspr_tpu_torch.config."
                         f"PipelineConfig, got {type(config).__module__}."
                         f"{type(config).__name__}")
     if fano_mode not in FANO_MODES:
         raise ValueError(f"fano_mode {fano_mode!r} not in {FANO_MODES}")
-    c, d = config.coarse, config.demod
-    if c.hpbm > 32 or c.grid_impl == "einsum":
-        raise NotImplementedError(
-            "the wideband im2col einsum grid (hpbm > 32) is not ported")
-    if fano_mode == "device" and d.osd_depth > 0 and d.osd_max_lanes > 0:
-        raise NotImplementedError(
-            "on-device OSD (osd_depth > 0 in fano_mode 'device') is not "
-            "ported; fano_mode 'host' runs the host OSD")
 
 
 class DeviceDecoder:
@@ -140,9 +145,14 @@ class DeviceDecoder:
         self.n_cand = max_peaks(self.config.coarse)
         self.state = state_from_numpy(
             state if state is not None else state_numpy(self.config),
-            self.device)
+            self.device, keys=state_keys(self.config))
         if self.state["jiggles"].shape[0] != self.config.demod.n_jiggles:
             raise ValueError("state jiggles do not match n_jiggles")
+        # on-device OSD: only when osd_depth > 0 and osd_max_lanes > 0
+        # (jit_decoder.py:127-134); the hybrid engine runs the host OSD
+        self._osd_G = self.state.get("osd_G") if fano_mode == "device" \
+            else None
+        self._per_window = None
         # host-built constants, moved to the device once: a copy per call
         # would cost host time and wait for the device each time
         cfg = self.config.coarse
@@ -194,8 +204,27 @@ class DeviceDecoder:
                                               for z in np.asarray(zs)]))
 
     def __call__(self, z: np.ndarray) -> DeviceDecoderOutput:
-        """One (fl,) complex window -> its output, as a batch of one."""
-        return self.decode_batch(np.asarray(z)[None]).window(0)
+        """One (fl,) complex window -> its output, by the reference's
+        per-window program (jit_decoder.py:1214-1220): see
+        ``_window_program``."""
+        return self._window_program().decode_batch(
+            np.asarray(z)[None]).window(0)
+
+    def _window_program(self) -> "DeviceDecoder":
+        """This decoder with cand_compact_lanes, refine_max_lanes and
+        fano_compact_lanes at 0, sharing its state: a batch of one window
+        then runs jit_decoder.py:594-696 (every lane refined, at most
+        fano_max_lanes gated lanes per Fano phase, OSD over the window's C
+        lanes)."""
+        if self._per_window is None:
+            demod = dataclasses.replace(
+                self.config.demod, cand_compact_lanes=0, refine_max_lanes=0,
+                fano_compact_lanes=0)
+            w = copy.copy(self)
+            w.config = dataclasses.replace(self.config, demod=demod)
+            w._per_window = w
+            self._per_window = w
+        return self._per_window
 
     # -- coarse stage (jit_decoder.py:302-410) ------------------------------
 
@@ -241,10 +270,17 @@ class DeviceDecoder:
                              col_window=self._cols, consts=self._stft_consts)
         sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=m, col0=cb0)
         valid, if0, snr = self._peaks(sm)
-        grid_dtype = "f32" if cfg.grid_dtype == "auto" else cfg.grid_dtype
+        # conv for narrowband, the im2col GEMM for wideband; bf16 operands
+        # for the einsum (jit_decoder.py:350-361); explicit values stand
+        grid_impl = cfg.grid_impl
+        if grid_impl == "auto":
+            grid_impl = "einsum" if cfg.hpbm > 32 else "conv"
+        grid_dtype = cfg.grid_dtype
+        if grid_dtype == "auto":
+            grid_dtype = "bf16" if grid_impl == "einsum" else "f32"
         syncgrid = coarse_score_grid(
             ps, if0 - cb0, self.state["offsets"], self.state["sign"],
-            impl="conv",
+            impl=grid_impl,
             f_window=(m - cfg.hpbm - 1 - 6 - cb0, m + cfg.hpbm + 1 + 6 - cb0),
             dtype=grid_dtype)
         return {"valid": valid, "if0": if0, "snr": snr, "grid": syncgrid}
@@ -599,8 +635,8 @@ class DeviceDecoder:
 
     def _fano_select_batch(self, pre: dict) -> dict:
         """Two-phase Fano (jiggle 0 of every lane, then the other jiggles of
-        lanes phase 1 did not decode) and first success in jiggle order
-        (jit_decoder.py:928-1022)."""
+        lanes phase 1 did not decode), first success in jiggle order, then
+        on-device OSD when it is on (jit_decoder.py:928-1022)."""
         gate = pre["gate"]
         W, C, J = gate.shape
         dev = gate.device
@@ -629,6 +665,11 @@ class DeviceDecoder:
             any_success = success.any(dim=2)
             jbest = torch.argmax(success.to(torch.int8), dim=2)  # first True
             payload = data[widx, cidx, jbest][..., :7]
+        osd = torch.zeros((W, C), dtype=torch.int64, device=dev)
+        if self._osd_G is not None:
+            any_success, payload, jbest, osd, dropped = self._osd_rescue(
+                pre, any_success, payload, jbest)
+            overflow = overflow + dropped.sum(dim=1)
         sync = pre["sync2"][widx, cidx, jbest]
         return {
             "success": any_success & pre["worth"], "payload": payload,
@@ -638,7 +679,63 @@ class DeviceDecoder:
             "jiggle": jbest, "valid": pre["valid"],
             "fano_overflow": overflow,
             "fano_attempts": gate.sum(dim=(1, 2)),
+            "osd": osd,
         }
+
+    def _osd_rescue(self, pre: dict, any_success: torch.Tensor,
+                    payload: torch.Tensor, jbest: torch.Tensor):
+        """On-device OSD (jit_decoder.py:1046-1118): worth candidates whose
+        gated Fano lanes all failed get an order-min(osd_depth, 4) decode of
+        their two most-synced gated jiggle lanes. The failed lanes of the
+        batch are compacted to osd_max_lanes, failing lanes first in lane
+        order; failed lanes beyond the cap come back in ``dropped``.
+        Acceptance (the r5 rule): quality >= osd_min_quality and (margin >=
+        osd_min_margin, or the two lanes' payloads agree and margin >=
+        osd_margin_agree). Only the failed lanes among the compacted ones
+        are decoded; the others could not be accepted.
+
+        Fields (W, C[, J]) -> (any_success, payload, jbest, osd, dropped),
+        each (W, C[, 7])."""
+        dcfg = self.config.demod
+        gate, worth, sync2 = pre["gate"], pre["worth"], pre["sync2"]
+        W, C, J = gate.shape
+        L = W * C
+        dev = gate.device
+        ar = torch.arange(L, device=dev)
+        gate_f = gate.reshape(L, J)
+        fail = worth.reshape(L) & gate_f.any(dim=1) & ~any_success.reshape(L)
+        skey = torch.where(gate_f, sync2.reshape(L, J), -torch.inf)
+        jsel = torch.argmax(skey, dim=1)
+        skey[ar, jsel] = -torch.inf
+        jsel2 = torch.argmax(skey, dim=1)          # 2nd-best gated lane
+        has2 = gate_f.sum(dim=1) >= 2
+        ML = min(dcfg.osd_max_lanes, L)
+        order = min(dcfg.osd_depth, 4)
+        sel = torch.argsort((~fail).to(torch.int8), stable=True)[:ML]
+        dropped = fail.clone()
+        dropped[sel] = False
+        succ = any_success.reshape(L).clone()
+        pay = payload.reshape(L, payload.shape[-1]).clone()
+        jb = jbest.reshape(L).clone()
+        osd = torch.zeros(L, dtype=torch.int64, device=dev)
+        n = min(int(fail.sum()), ML)
+        if n:
+            sel = sel[:n]                          # failed lanes only
+            deint = pre["deint"].reshape(L, J, 162)
+            lanes = torch.cat([deint[sel, jsel[sel]], deint[sel, jsel2[sel]]])
+            u, q, m, _ = osd_decode_lanes(lanes.float(), self._osd_G, order)
+            agree = (u[:n] == u[n:]).all(dim=1) & has2[sel]
+            q, m = q[:n], m[:n]
+            ok = ((q >= dcfg.osd_min_quality)
+                  & ((m >= dcfg.osd_min_margin)
+                     | (agree & (m >= dcfg.osd_margin_agree))))
+            pl = bits_to_payload(u[:n])[:, :pay.shape[-1]]
+            pay[sel] = torch.where(ok[:, None], pl, pay[sel])
+            jb[sel] = torch.where(ok, jsel[sel], jb[sel])
+            succ[sel] = succ[sel] | ok
+            osd[sel] = ok.to(torch.int64) * order
+        return (succ.reshape(W, C), pay.reshape(W, C, -1), jb.reshape(W, C),
+                osd.reshape(W, C), dropped.reshape(W, C))
 
     # -- hybrid engine (jit_decoder.py:572-592, :1120-1212) -----------------
 
@@ -749,7 +846,7 @@ class DeviceDecoder:
         """Field dict -> one (W, C, 23) float32 tensor:
         0 success 1 valid 2 freq 3 snr 4 sync 5 shift 6 drift 7 mode
         8 jiggle 9:13 slm_params 13:20 payload 20 fano_overflow
-        21 fano_attempts 22 osd (always 0)."""
+        21 fano_attempts 22 osd (0 = Fano, else the OSD order)."""
         f32 = torch.float32
         head = torch.stack([out[k].to(f32) for k in (
             "success", "valid", "freq", "snr", "sync", "shift", "drift",
@@ -762,8 +859,7 @@ class DeviceDecoder:
                           out["payload"].to(f32),
                           percol(out["fano_overflow"]),
                           percol(out["fano_attempts"]),
-                          torch.zeros(lead + (1,), dtype=f32,
-                                      device=head.device)], dim=-1)
+                          out["osd"].to(f32)[..., None]], dim=-1)
 
     @staticmethod
     def unpack_output(a) -> DeviceDecoderOutput:

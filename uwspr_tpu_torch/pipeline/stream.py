@@ -10,7 +10,9 @@ overlap), so every 111 s frame lies wholly inside some window.
 
 - ``StreamDecoder``: one window per decode, engine "host" (WindowDecoder),
   "device" (DeviceDecoder), "hybrid" (DeviceDecoder, Fano on the host) or
-  "auto" ("device" on a CUDA device, "host" on the CPU);
+  "auto" ("device" on a CUDA device, "host" on the CPU); with passes > 1
+  each window is decoded again after the decoded frames are subtracted
+  (pipeline/multipass.py);
 - ``BatchedStreamDecoder``: the native C++ windower feeding fixed-width
   DeviceDecoder batches.
 
@@ -36,6 +38,7 @@ from uwspr_tpu_torch.device import resolve_device
 from uwspr_tpu_torch.pipeline.decoder import DecodeResult, Spot, WindowDecoder
 from uwspr_tpu_torch.pipeline.device_decoder import (DeviceDecoder,
                                                      DeviceDecoderOutput)
+from uwspr_tpu_torch.pipeline.multipass import multipass_spots
 from uwspr_tpu_torch.pipeline.native import NativeWindower
 from uwspr_tpu_torch.protocol.messages import HashTable
 
@@ -110,21 +113,20 @@ def serving_config(config: PipelineConfig, device: torch.device,
 class StreamDecoder:
     """Continuous decoder over one or many channels, one window per decode.
 
-    engine: "host" (WindowDecoder), "device" (DeviceDecoder on a batch of
-    one window), "hybrid" (the same with the Fano on the host) or "auto",
-    which follows ``device``: "device" on CUDA, "host" on the CPU."""
+    engine: "host" (WindowDecoder), "device" (DeviceDecoder's per-window
+    program), "hybrid" (the same with the Fano on the host) or "auto",
+    which follows ``device``: "device" on CUDA, "host" on the CPU.
+    passes > 1: successive interference cancellation between decodes of
+    the window (stream.py:118-136)."""
 
     def __init__(self, config: PipelineConfig | None = None,
                  n_channels: int = 1, hashtable: HashTable | None = None,
                  engine: str = "auto", passes: int = 1, *,
                  device: str | torch.device):
-        if passes != 1:
-            raise NotImplementedError(
-                "passes > 1 (multipass interference cancellation) is not "
-                "ported")
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r} not in {ENGINES}")
         self.config = config or PipelineConfig()
+        self.passes = passes
         self.device = resolve_device(device)
         if engine == "auto":
             engine = "device" if self.device.type == "cuda" else "host"
@@ -144,11 +146,31 @@ class StreamDecoder:
                         for _ in range(n_channels)]
         self.stats = StreamStats()
 
-    def _decode(self, window: np.ndarray) -> DecodeResult:
+    def _decode_once(self, window: np.ndarray) -> DecodeResult:
         if self._device is None:
             return self.decoder(window)
         return device_result(self._device, self._device(window),
                              self.hashtable)
+
+    def _decode(self, window: np.ndarray) -> DecodeResult:
+        if self.passes <= 1:
+            return self._decode_once(window)
+        # successive interference cancellation between passes: candidates
+        # are the most of any pass, Fano attempts the sum over passes
+        meta = {"cand": 0, "fano": 0}
+
+        def decode_fn(z):
+            r = self._decode_once(z)
+            meta["cand"] = max(meta["cand"], r.n_candidates)
+            meta["fano"] += r.n_fano_attempts
+            return r.spots
+
+        out = DecodeResult(spots=multipass_spots(window, decode_fn,
+                                                 self.config,
+                                                 passes=self.passes))
+        out.n_candidates = meta["cand"]
+        out.n_fano_attempts = meta["fano"]
+        return out
 
     def push(self, samples: np.ndarray) -> list[tuple[int, DecodeResult]]:
         """samples: (n,) or (channels, n). Returns [(channel, result), ...]."""
