@@ -128,20 +128,45 @@ Phases, each raising on failure (nothing is caught):
    CUDA events behind the spin kernel and on the host clock: the ring's ms
    per hop (f32 and int16 ingest) beside DeviceDecoder on the same
    windows, BatchedStreamDecoder and StreamDecoder(engine="device") per
-   window.
+   window;
+15. (run after 13, before the timing of 14) the uwspr-torch CLI
+   (uwspr_tpu_torch.cli.main in this process, stdout and stderr captured),
+   each command with the kernel counts set to 0 just before it and read
+   just after: (a) encode "VE3EMB FN25 30" at +2.5 Hz, c2towav, then
+   decode of the wav on the default device and engine prints the message
+   with the selection and Fano kernels launched and no plain version
+   called; (b) --engine host (probe and selection kernels) and --engine
+   hybrid print it too; (c) every selection and Fano call of (a) replayed
+   through select_best_plain and fano_native.cc, bit-exact; (d)
+   Downconverter on the card against the port's CPU run, within 1e-5 of
+   the output's peak, on that wav (1.44 M audio samples) and on a one-hour
+   capture (43.2 M), the device half (mix and strided FIR) timed by CUDA
+   events beside its bound; (e) serve --runtime ring --channels 128
+   --windows 24 --snr -18 prints the spots of RingServe driven here on the
+   same synthetic blocks, every one the sent message; (f) python -m
+   uwspr_tpu_torch.cli serve --input - --format s16 as a process of its
+   own, fed one frame's 12 kS/s audio, prints the spot, exits 0 and
+   imports no jax* or uwspr_tpu* module (-X importtime), and its wall time
+   is taken; (g) sweep --engine device from -15 to -27 dB and --engine
+   host at -15 dB, 32 trials a point, decode 32/32 at -15 dB; (h) a sender
+   and a wav receiver flowgraph, written here, through grc, and decode of
+   the sender's wav; (i) decode --trace-dir writes a torch.profiler trace
+   that names select_best_kernel and fano_kernel; (j) warmup --batch
+   1,128.
 
 Every path is driven with the kernel counts set to 0 just before it and
 read just after. Prints a JSON line of the runtimes', wideband, OSD and
-multipass times, then a JSON line of per-kernel results (launches on the
-main path, on the ring and on every other path, times, bound, library
-call) before the last line, and as the last line {"ok": true, "device":
-{...}}.
+multipass times, a JSON line of the CLI phase's results, then a JSON line
+of per-kernel results (launches on the main path, on the ring and on every
+other path, times, bound, library call) before the last line, and as the
+last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -1882,6 +1907,356 @@ def phase_multipass(card):
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+CLI_FREQ = 2.5          # Hz, the encoded frame's offset
+HOUR = 12000 * 3600     # audio samples of a one-hour 12 kS/s capture
+FRONTEND_RTOL = 1e-5    # of the output's peak magnitude
+F32_FLOP_S = 67e12      # H100 SXM data sheet, f32 outside the tensor cores
+
+
+def run_cli(argv):
+    """uwspr_tpu_torch.cli.main(argv) in this process -> (stdout, stderr)."""
+    import io
+
+    from uwspr_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        cli.main([str(a) for a in argv])
+    return out.getvalue(), err.getvalue()
+
+
+def cli_path(argv, kernels, what, calls=None):
+    """One CLI command with every count set to 0 just before it and read
+    just after: the named kernels launched, no plain version called;
+    ``calls`` (a KernelCalls) records the device engine's kernel calls.
+    Returns (stdout, stderr, launches, wall seconds)."""
+    import torch
+    with calls if calls is not None else contextlib.nullcontext():
+        reset_all_counters()
+        t0 = time.perf_counter()
+        out, err = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = read_counters()
+    log(f"[cli] {what}: uwspr-torch {' '.join(map(str, argv))} "
+        f"({wall:.2f} s)")
+    for line in (out + err).splitlines()[:12]:
+        log(f"[cli]   | {line}")
+    log(f"[cli] {what}: launches {launches}; plain calls {plain}")
+    require(all(launches[k] > 0 for k in kernels),
+            f"cli {what}: a kernel of the path was not launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"cli {what}: a plain version ran on the path: {plain}")
+    return out, err, launches, wall
+
+
+def spot_messages(out):
+    """The messages of decode's spot lines."""
+    return [ln.split("    (", 1)[0] for ln in out.splitlines()
+            if "    (freq " in ln]
+
+
+def event_ms(fn, reps):
+    """Mean ms per call of fn by CUDA events, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def cli_decodes(tmp):
+    """(a) encode -> c2towav -> decode x.wav on the default device and
+    engine, its kernel calls recorded; (b) the host and hybrid engines;
+    (c) the replay of (a)'s selection and Fano calls."""
+    c2, wav = tmp / "x.c2", tmp / "x.wav"
+    run_cli(["encode", *EXPECTED.split(), "--freq-offset", CLI_FREQ,
+             "-o", c2])
+    run_cli(["c2towav", c2, "-o", wav])
+    calls = KernelCalls()
+    runs = {}
+    for name, extra, kernels in (
+            ("device", [], ("select_best", "fano_decode")),
+            ("host", ["--engine", "host"], ("probe_powers", "select_best")),
+            ("hybrid", ["--engine", "hybrid"], ("select_best",))):
+        out, err, launches, wall = cli_path(
+            ["decode", wav, *extra], kernels, f"decode ({name})",
+            calls if name == "device" else None)
+        require(spot_messages(out) == [EXPECTED],
+                f"cli decode ({name}) printed {spot_messages(out)}")
+        require(f"({name} engine on cuda;" in err,
+                f"cli decode ({name}) ran another engine: {err}")
+        runs[name] = {"wall_s": wall,
+                      "summary": err.strip().splitlines()[-1]}
+        runs[name + "_launches"] = launches
+    calls.replay("cli decode")
+    return c2, wav, runs
+
+
+def cli_frontend(card, wav):
+    """(d) Downconverter on the card against the port's CPU run on the
+    frame's wav and on a one-hour capture; ms of the device half (mix and
+    strided FIR) by CUDA events, and of the whole call on the host clock."""
+    import torch
+
+    from uwspr_tpu_torch.frontend.downconvert import Downconverter
+    from uwspr_tpu_torch.io.wavfile import read_wav
+    audio, _ = read_wav(wav)
+    rng = np.random.default_rng(15)
+    hour = (np.resize(audio, HOUR)
+            + 0.05 * rng.standard_normal(HOUR, dtype=np.float32))
+    card_dc, cpu_dc = Downconverter(device="cuda"), Downconverter(device="cpu")
+    res = {}
+    for name, a in (("wav", audio), ("hour", hour)):
+        card_dc(a)                                  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card_dc(a)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = cpu_dc(a)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        peak = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        require(got.shape == want.shape == (len(a) // 32,)
+                and err <= FRONTEND_RTOL * peak,
+                f"downconvert on the card differs from the CPU run on "
+                f"{name}: {err} of peak {peak}")
+        n = len(a) // 32 * 32
+        x = torch.from_numpy(a[:n]).cuda()
+        lo = torch.from_numpy(card_dc.mixer(n)).cuda()
+        ms = event_ms(lambda: card_dc.planes(x, lo), reps=3)
+        # least time: read the audio and the mixer once, write the planes
+        # once; 2 mix products and 2 x 257 multiply-adds per output
+        nbytes = 4 * n + 8 * n + 8 * (n // 32)
+        flops = 2 * n + 2 * 2 * 257 * (n // 32)
+        bound_ms = max(nbytes / HBM_BYTES_S, flops / F32_FLOP_S) * 1e3
+        log(f"[cli] {card}: downconvert {name} ({len(a):,} audio samples): "
+            f"device half {ms:.4f} ms (CUDA events; bound {bound_ms:.4f} "
+            f"ms, bytes), whole call {wall_ms:.1f} ms wall with the host "
+            f"mixer and copies, CPU run {cpu_ms:.1f} ms; max |card - cpu| "
+            f"{err:.3g} = {err / peak:.3g} of the peak")
+        res[name] = {"samples": len(a), "ms": ms, "bound_ms": bound_ms,
+                     "wall_ms": wall_ms, "cpu_wall_ms": cpu_ms,
+                     "max_err_of_peak": err / peak}
+        del x, lo
+    return res
+
+
+def cli_ring(card):
+    """(e) serve --runtime ring at 128 channels on the synthetic source,
+    against RingServe driven in-process on the same blocks."""
+    import argparse
+
+    from uwspr_tpu_torch import cli
+    from uwspr_tpu_torch.pipeline.device_ring import RingServe
+    out, err, launches, wall = cli_path(
+        ["serve", "--runtime", "ring", "--channels", RING_CH, "--windows",
+         RING_HOPS, "--snr", SNR_DB], ("select_best", "fano_decode"),
+        "serve --runtime ring")
+    got = [ln for ln in out.splitlines() if ln.startswith("ch")]
+    args = argparse.Namespace(snr=SNR_DB, channels=RING_CH,
+                              windows=RING_HOPS, duty=0.3)
+    ring = RingServe(n_channels=RING_CH, device="cuda")
+    info = {"sent": 0}
+    want = []
+    for block in cli._synthetic_source(args, ring.ring.hop, info):
+        for ch, r in ring.push(block):
+            want += [f"ch{ch}: {s.message} ({s.freq:+.2f} Hz)"
+                     for s in r.spots]
+    require(got == want, f"cli ring printed {len(got)} spots, RingServe "
+            f"on the same blocks {len(want)}")
+    require(want and all(ln.split(": ", 1)[1].startswith(EXPECTED + " (")
+                         for ln in want),
+            "cli ring: a spot that is not the sent message")
+    summary = err.strip().splitlines()[-1]
+    rate = float(summary.split(" window-samples/s")[0].rsplit(" ", 1)[1])
+    shed = int(summary.split(" lanes shed")[0].rsplit(" ", 1)[1])
+    log(f"[cli] {card}: serve --runtime ring: {len(got)} spots of "
+        f"{info['sent']} frames sent, all {EXPECTED}, equal to RingServe "
+        f"in-process; {rate:.0f} window-samples/s; {shed} lanes shed")
+    return launches, {"spots": len(got), "sent": info["sent"],
+                      "window_samples_s": rate, "lanes_shed": shed,
+                      "wall_s": wall}
+
+
+def cli_stdin(card, tmp):
+    """(f) python -m uwspr_tpu_torch.cli serve --input - --format s16 as a
+    process of its own, fed one frame's 12 kS/s audio; -X importtime lists
+    every module it imports. A second, plain run gives the wall time a
+    user pays (cold start included; the kernel library is already built)."""
+    from uwspr_tpu_torch.frontend.downconvert import upconvert
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    z = synthesize_frame("VE3EMB", "FN25", 30, start_sample=750,
+                         freq_offset=1.5)
+    audio = np.concatenate([upconvert(z), np.zeros(24000, np.float32)])
+    s16 = (np.clip(audio, -1, 1) * 32767).astype("<i2").tobytes()
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    argv = ["-m", "uwspr_tpu_torch.cli", "serve", "--input", "-",
+            "--format", "s16"]
+    runs = {}
+    for name, flags in (("importtime", ["-X", "importtime"]), ("plain", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *flags, *argv], input=s16,
+                              capture_output=True, cwd=tmp, env=env,
+                              timeout=300)
+        runs[name] = (proc, time.perf_counter() - t0)
+        out, err = proc.stdout.decode(), proc.stderr.decode()
+        require(proc.returncode == 0,
+                f"cli stdin ({name}) exited {proc.returncode}: {err[-2000:]}")
+        require(f"ch0: {EXPECTED} (" in out,
+                f"cli stdin ({name}) printed {out!r}")
+    err = runs["importtime"][0].stderr.decode()
+    rows = [ln.split("|") for ln in err.splitlines()
+            if ln.startswith("import time:") and ln.count("|") == 2]
+    mods = [r[2].strip() for r in rows[1:]]          # rows[0]: the header
+    # seconds spent importing: the cumulative times of top-level imports
+    # (one space before the name; nested ones are indented further)
+    import_s = sum(int(r[1]) for r in rows[1:]
+                   if not r[2].startswith("  ")) / 1e6
+    # jax*, or any uwspr package but the port (the JAX package among them)
+    leaked = [m for m in mods if m.split(".")[0].startswith("jax")
+              or (m.split(".")[0].startswith("uwspr")
+                  and m.split(".")[0] != "uwspr_tpu_torch")]
+    require("uwspr_tpu_torch.frontend.downconvert" in mods and not leaked,
+            f"cli stdin process imported {leaked}")
+    plain = runs["plain"][0]
+    log(f"[cli] {card}: serve --input - --format s16 in its own process: "
+        f"{plain.stdout.decode().strip()}; {len(mods)} modules imported "
+        f"in {import_s:.2f} s, none jax* or uwspr_tpu*; wall "
+        f"{runs['plain'][1]:.2f} s (with -X importtime "
+        f"{runs['importtime'][1]:.2f} s)")
+    return {"wall_s": runs["plain"][1],
+            "importtime_wall_s": runs["importtime"][1],
+            "modules": len(mods), "import_s": import_s, "summary":
+            plain.stderr.decode().strip().splitlines()[-1]}
+
+
+def cli_sweeps(card):
+    """(g) the device sweep from -15 to -27 dB and the host sweep at -15 dB,
+    32 trials a point."""
+    import torch
+    out = {}
+    for engine, snr, kernels in (
+            ("device", ("-15", "-27", "-4"), ("select_best", "fano_decode")),
+            ("host", ("-15", "-15", "1"), ("probe_powers", "select_best"))):
+        text, _, launches, wall = cli_path(
+            ["sweep", "--engine", engine, "--snr", *snr, "--trials", 32],
+            kernels, f"sweep --engine {engine}")
+        doc = json.loads(text.splitlines()[-1])
+        require(doc["decode_rate"]["-15"] == 1.0 and doc["engine"] == engine
+                and doc["backend"] == torch.cuda.get_device_name(0),
+                f"cli sweep ({engine}): {doc}")
+        log(f"[cli] {card}: sweep --engine {engine}, 32 trials a point: "
+            f"{doc['decode_rate']} in {wall:.2f} s")
+        out[engine] = {"decode_rate": doc["decode_rate"], "wall_s": wall}
+    return out
+
+
+def _grc_block(key, **params):
+    ps = "".join(f"<param><key>{k}</key><value>{v}</value></param>"
+                 for k, v in params.items())
+    return f"<block><key>{key}</key>{ps}</block>"
+
+
+def _grc_flowgraph(blocks, links):
+    cs = "".join(f"<connection><source_block_id>{a}</source_block_id>"
+                 f"<sink_block_id>{b}</sink_block_id></connection>"
+                 for a, b in links)
+    return ("<?xml version='1.0' encoding='utf-8'?>\n<flow_graph>"
+            + "".join(blocks) + cs + "</flow_graph>")
+
+
+def cli_grc(card, tmp, c2):
+    """(h) a sender flowgraph (C2 file -> wav sink) and a receiver
+    flowgraph (wav source -> the uwspr decode chain, the GNU Radio block's
+    maxfreqs 200), written here, through ``grc``; then ``decode`` of the
+    sender's wav."""
+    sender, receiver, sent = tmp / "send.grc", tmp / "recv.grc", tmp / "s.wav"
+    var = [_grc_block("variable", id=k, value=v) for k, v in (
+        ("samp_rate", 12000), ("Frame_Length", 45000),
+        ("Center_Frequency", 1500), ("Half_Bandwidth", 10))]
+    sender.write_text(_grc_flowgraph(var + [
+        _grc_block("C2_File_Source", id="c2", file=f"/home/author/{c2.name}",
+                   repeat="False"),
+        _grc_block("blocks_wavfile_sink", id="ws", file="/home/author/s.wav")],
+        [("c2", "ws")]))
+    receiver.write_text(_grc_flowgraph(var + [
+        _grc_block("blocks_wavfile_source", id="w0", file=sent,
+                   repeat="False"),
+        _grc_block("rational_resampler_xxx", id="rr", decim=32),
+        _grc_block("uwspr_sliding_window_stream_to_pdu", id="sw", fs=375,
+                   fl="Frame_Length", shift=9, C=2),
+        _grc_block("uwspr_FDR", id="fdr", fs=375, fl="Frame_Length",
+                   spb=256, maxdrift=0, maxfreqs=200,
+                   halfbandwidth="Half_Bandwidth", cf="Center_Frequency",
+                   threshold=10),
+        _grc_block("blocks_message_debug", id="dbg")],
+        [("w0", "rr"), ("rr", "sw"), ("sw", "fdr"), ("fdr", "dbg")]))
+    out, _ = run_cli(["grc", sender, "--files-dir", c2.parent, "-o", sent])
+    require(sent.exists(), f"cli grc sender wrote no wav: {out}")
+    out, err, _, wall = cli_path(
+        ["grc", receiver], ("select_best", "fano_decode"), "grc receiver")
+    require(EXPECTED in out and "kind: receiver" in err,
+            f"cli grc receiver printed {out!r}")
+    out, _, _, _ = cli_path(["decode", sent], ("select_best", "fano_decode"),
+                            "decode of the grc sender's wav")
+    require(spot_messages(out) == [EXPECTED],
+            f"cli decode of the sender's wav printed {out!r}")
+    log(f"[cli] {card}: grc sender -> {sent.name}, grc receiver and decode "
+        f"of it both gave {EXPECTED}")
+    return {"receiver_wall_s": wall}
+
+
+def cli_trace(tmp, c2):
+    """(i) decode --trace-dir: a trace that names the selection and Fano
+    kernels."""
+    tdir = tmp / "trace"
+    cli_path(["decode", c2, "--trace-dir", tdir],
+             ("select_best", "fano_decode"), "decode --trace-dir")
+    files = sorted(tdir.glob("*.pt.trace.json"))
+    require(len(files) == 1, f"cli trace: {files}")
+    text = files[0].read_text()
+    names = {k: text.count(k) for k in ("select_best_kernel", "fano_kernel")}
+    require(all(names.values()), f"cli trace names no kernel: {names}")
+    log(f"[cli] decode --trace-dir: {files[0].name}, {len(text):,} bytes, "
+        f"kernel names {names}")
+    return {"bytes": len(text), "kernel_names": names}
+
+
+def phase_cli(card):
+    """The uwspr-torch CLI on the card (see the module doc, phase 15).
+    Returns (results, {path: launches})."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        c2, wav, decodes = cli_decodes(tmp)
+        launches = {f"cli_decode_{k}": decodes.pop(f"{k}_launches")
+                    for k in ("device", "host", "hybrid")}
+        frontend = cli_frontend(card, wav)
+        launches["cli_ring"], ring = cli_ring(card)
+        stdin = cli_stdin(card, tmp)
+        sweeps = cli_sweeps(card)
+        grc = cli_grc(card, tmp, c2)
+        trace = cli_trace(tmp, c2)
+        t0 = time.perf_counter()
+        out, _ = run_cli(["warmup", "--batch", "1,128"])
+        warm = time.perf_counter() - t0
+        require("W=128 engine=hybrid narrowband: ran in" in out,
+                f"cli warmup printed {out!r}")
+        log(f"[cli] warmup --batch 1,128 in {warm:.2f} s:\n{out.rstrip()}")
+    return ({"decode": decodes, "frontend": frontend, "ring": ring,
+             "stdin": stdin, "sweep": sweeps, "grc": grc, "trace": trace,
+             "warmup_s": warm}, launches)
+
+
 # ---------------------------------------------------------------- phase 14
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
@@ -2213,6 +2588,7 @@ def main() -> int:
     wide = phase_wideband(card)
     osd = phase_osd(card)
     multi = phase_multipass(card)
+    cli, cli_launches = phase_cli(card)
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
@@ -2237,7 +2613,8 @@ def main() -> int:
              "wideband_pallas": wide["pallas_launches"],
              "osd": osd["launches"],
              "multipass_device": multi["device"]["launches"],
-             "multipass_hybrid": multi["hybrid"]["launches"]}
+             "multipass_hybrid": multi["hybrid"]["launches"],
+             **cli_launches}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
@@ -2261,6 +2638,7 @@ def main() -> int:
                       "multipass": {k: {f: v[f] for f in (
                           "passes2_ms", "passes1_ms")}
                           for k, v in multi.items()}}), flush=True)
+    print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

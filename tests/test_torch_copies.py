@@ -1,7 +1,7 @@
 """The port holds its own copy of every JAX-free layer it uses, and nothing
 of the JAX package.
 
-Two kinds of test:
+Three kinds of test:
 
 - parity: each copy (config, protocol tables and constants, message
   packing, modulation, the channel, c2 files, the numpy SLM model, the
@@ -9,9 +9,13 @@ Two kinds of test:
   acceptance, stage timers) against its original in ``uwspr_tpu``, on
   inputs made with numpy
   from a seed. Tolerance: exact everywhere (the copies are the same code).
+- sources: the port's copies of python modules (io/wavfile.py, grc.py,
+  utils/spotlog.py, the numpy half of frontend/downconvert.py, io/audio.py
+  but for the repaired arecord read) against their originals' ASTs, up to
+  docstrings and the package their imports name.
 - separation: a static walk of the AST of every port source file (and of
   chip_smoke.py and scripts/torch_stages.py) for imports of ``uwspr_tpu``
-  and paths into ``uwspr_tpu/``.
+  or ``jax`` and paths into ``uwspr_tpu/``.
 
 ``jax_config`` turns a port config into the JAX package's config of the
 same fields; the other ``test_torch_*`` files build their configs with the
@@ -301,6 +305,84 @@ def test_stage_timers_equal():
     assert list(b.summary()) == ["coarse", "fano"]
 
 
+# ---------------------------------------------------------------- sources
+
+def _normalized(path: pathlib.Path) -> ast.Module:
+    """``path``'s AST without docstrings, its ``uwspr_tpu`` imports read as
+    ``uwspr_tpu_torch`` ones: two copies that differ only there dump
+    equal."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:] or [ast.Pass()]
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.split(".")[0] == "uwspr_tpu"):
+            node.module = "uwspr_tpu_torch" + node.module[len("uwspr_tpu"):]
+    return tree
+
+
+def _definitions(path: pathlib.Path) -> dict[str, str]:
+    """Top-level statements of ``path`` by name (a class's methods as
+    ``Class.method``, its other statements as ``Class``), each dumped."""
+    out = {}
+    for i, node in enumerate(_normalized(path).body):
+        if isinstance(node, ast.ClassDef):
+            rest = []
+            for item in node.body:
+                if isinstance(item, ast.FunctionDef):
+                    out[f"{node.name}.{item.name}"] = ast.dump(item)
+                else:
+                    rest.append(ast.dump(item))
+            out[node.name] = (str(rest), [ast.dump(b) for b in node.bases])
+        elif isinstance(node, ast.FunctionDef):
+            out[node.name] = ast.dump(node)
+        else:
+            out[f"<statement {ast.dump(node)[:60]}>#{i}"] = ast.dump(node)
+    return out
+
+
+@pytest.mark.parametrize("rel", ["io/wavfile.py", "grc.py",
+                                 "utils/spotlog.py"])
+def test_module_copies_equal(rel):
+    """Whole-module copies: the same code as the original, up to
+    docstrings and the package their imports name."""
+    own = ROOT / "uwspr_tpu_torch" / rel
+    orig = ROOT / "uwspr_tpu" / rel
+    assert ast.dump(_normalized(own)) == ast.dump(_normalized(orig))
+
+
+def test_downconvert_numpy_half_equal():
+    """design_lowpass, StreamingDownconverter and upconvert are the
+    original's; Downconverter and downconvert are the port's own (torch,
+    on a named device)."""
+    own = _definitions(ROOT / "uwspr_tpu_torch/frontend/downconvert.py")
+    orig = _definitions(ROOT / "uwspr_tpu/frontend/downconvert.py")
+    names = ["design_lowpass", "upconvert", "StreamingDownconverter",
+             "StreamingDownconverter.__init__",
+             "StreamingDownconverter.push"]
+    for name in names:
+        assert own[name] == orig[name], name
+    assert {"Downconverter.__call__", "downconvert"} <= set(own)
+
+
+# the one definition in which the port's io/audio.py differs: a short read
+# with an odd byte count is truncated to whole samples, and fewer than 2
+# bytes end the stream with EOFError (the original raises ValueError)
+AUDIO_REPAIRED = {"_ArecordBackend.read"}
+
+
+def test_audio_copy_equal_except_the_arecord_read():
+    own = _definitions(ROOT / "uwspr_tpu_torch/io/audio.py")
+    orig = _definitions(ROOT / "uwspr_tpu/io/audio.py")
+    assert set(own) == set(orig)
+    differ = {k for k in own if own[k] != orig[k]}
+    assert differ == AUDIO_REPAIRED
+
+
 # ---------------------------------------------------------------- separation
 
 PORT_FILES = sorted(
@@ -322,12 +404,11 @@ def _jax_package_uses(tree: ast.AST) -> list[str]:
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             found += [f"import {a.name}" for a in node.names
-                      if a.name == "uwspr_tpu"
-                      or a.name.startswith("uwspr_tpu.")]
+                      if a.name.split(".")[0] in ("uwspr_tpu", "jax")]
         elif isinstance(node, ast.ImportFrom):
             mod = node.module or ""
-            if node.level == 0 and (mod == "uwspr_tpu"
-                                    or mod.startswith("uwspr_tpu.")):
+            if node.level == 0 and mod.split(".")[0] in ("uwspr_tpu",
+                                                         "jax"):
                 found.append(f"from {mod} import ...")
         elif (isinstance(node, ast.Constant) and isinstance(node.value, str)
               and id(node) not in docstrings):
@@ -337,6 +418,17 @@ def _jax_package_uses(tree: ast.AST) -> list[str]:
                         and not _CITATION.match(s))):
                 found.append(f"string {s!r} at line {node.lineno}")
     return found
+
+
+def test_guard_walks_the_user_facing_surfaces():
+    for rel in ("cli.py", "grc.py", "frontend/downconvert.py",
+                "io/wavfile.py", "io/audio.py", "utils/spotlog.py",
+                "utils/profiler.py", "utils/roofline.py",
+                "pipeline/sweep.py"):
+        assert f"uwspr_tpu_torch/{rel}" in PORT_FILES, rel
+    assert len(_jax_package_uses(ast.parse(
+        "import jax\nimport jax.numpy as jnp\nfrom jax import lax\n"
+        "import jaxtyping\n"))) == 3
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

@@ -308,3 +308,30 @@ def test_batched_stream_decoder_matches_jax():
         [MSG], ["K1ABC FN42 37"], []]
     assert_spots_close(got, exp)
     assert t.windower.dropped == 0 and t.stats.windows == 3
+
+
+def test_stats_sum_the_lanes_the_caps_shed():
+    """device_result reads each window's packed fano_overflow (refine
+    overflow included) into n_lanes_shed, StreamStats sums it, and
+    checkpoints keep the reference's stats fields only."""
+    import dataclasses
+    from uwspr_tpu_torch.pipeline.device_decoder import (DeviceDecoder,
+                                                         DeviceDecoderOutput)
+    C = 3
+    z = np.zeros(C, np.float32)
+    one = DeviceDecoderOutput(
+        success=np.zeros(C, bool), payload=np.zeros((C, 7), np.uint8),
+        freq=z, snr=z, sync=z, shift=z.astype(np.int32), drift=z,
+        mode=z.astype(np.int32), slm_params=np.zeros((C, 4), np.float32),
+        jiggle=z.astype(np.int32), valid=np.ones(C, bool),
+        fano_overflow=np.int32(5), fano_attempts=np.int32(7),
+        osd=z.astype(np.int32))
+    stats = tstream.StreamStats()
+    for _ in range(2):
+        r = tstream.device_result(DeviceDecoder, one, None)
+        assert (r.n_lanes_shed, r.n_fano_attempts, r.n_candidates) == (5, 7, 3)
+        stats.add(r)
+    assert (stats.windows, stats.lanes_shed) == (2, 10)
+    assert "lanes_shed" not in dataclasses.asdict(stats)
+    assert set(dataclasses.asdict(stats)) == set(
+        dataclasses.asdict(jstream.StreamStats()))

@@ -72,6 +72,12 @@ class DecodeResult:
     n_worth_a_try: int = 0
     n_fano_attempts: int = 0
 
+    def __post_init__(self):
+        # device engines: lanes the refine and Fano/OSD lane caps dropped
+        # (the packed fano_overflow column, refine overflow included). Not
+        # a field: the fields stay the reference's DecodeResult's
+        self.n_lanes_shed = 0
+
 
 class WindowDecoder:
     """The host engine on ``device``. ``state`` is the drift-bank state of

@@ -85,11 +85,18 @@ class StreamStats:
     spots: int = 0
     decode_seconds: float = 0.0
 
+    def __post_init__(self):
+        # summed DecodeResult.n_lanes_shed. Not a field: it is counted per
+        # process and left out of checkpoints, whose stats.json stays the
+        # reference's (the JAX runtime reads the port's checkpoints)
+        self.lanes_shed = 0
+
     def add(self, r: DecodeResult) -> None:
         self.windows += 1
         self.candidates += r.n_candidates
         self.fano_attempts += r.n_fano_attempts
         self.spots += len(r.spots)
+        self.lanes_shed += r.n_lanes_shed
 
 
 def device_result(dec: DeviceDecoder, one: DeviceDecoderOutput,
@@ -98,6 +105,7 @@ def device_result(dec: DeviceDecoder, one: DeviceDecoderOutput,
     r = DecodeResult(spots=dec.spots(one, hashtable))
     r.n_candidates = int(one.valid.sum())
     r.n_fano_attempts = int(one.fano_attempts)
+    r.n_lanes_shed = int(one.fano_overflow)
     return r
 
 
@@ -157,12 +165,13 @@ class StreamDecoder:
             return self._decode_once(window)
         # successive interference cancellation between passes: candidates
         # are the most of any pass, Fano attempts the sum over passes
-        meta = {"cand": 0, "fano": 0}
+        meta = {"cand": 0, "fano": 0, "shed": 0}
 
         def decode_fn(z):
             r = self._decode_once(z)
             meta["cand"] = max(meta["cand"], r.n_candidates)
             meta["fano"] += r.n_fano_attempts
+            meta["shed"] += r.n_lanes_shed
             return r.spots
 
         out = DecodeResult(spots=multipass_spots(window, decode_fn,
@@ -170,6 +179,7 @@ class StreamDecoder:
                                                  passes=self.passes))
         out.n_candidates = meta["cand"]
         out.n_fano_attempts = meta["fano"]
+        out.n_lanes_shed = meta["shed"]
         return out
 
     def push(self, samples: np.ndarray) -> list[tuple[int, DecodeResult]]:
