@@ -152,14 +152,40 @@ Phases, each raising on failure (nothing is caught):
    and a wav receiver flowgraph, written here, through grc, and decode of
    the sender's wav; (i) decode --trace-dir writes a torch.profiler trace
    that names select_best_kernel and fano_kernel; (j) warmup --batch
-   1,128.
+   1,128;
+16. (run after 15, before the timing of 14) the multi-device layer
+   (uwspr_tpu_torch/parallel/) on phase 10's stream at PipelineConfig()
+   (the config serve --mesh runs: no compaction, the per-window Fano cap):
+   (a) ShardedStreamDecoder on a 1x1 mesh over NCCL in this process at
+   wins_per_shard 4; (b) four ranks sharing this card over gloo, under
+   python -m torch.distributed.run (this script with the argument
+   mesh-rank), on a 2x2 mesh at wins_per_shard 2. In each, the selection
+   and Fano kernels launched and no plain version called, every select_best
+   and fano_decode_batch call replayed as in 11 to 13, and the spots equal
+   BatchedStreamDecoder's (all channels) and StreamDecoder's (two channels)
+   of phase 10 on every window that holds a whole frame or none; in (b)
+   also each rank's packed output bitwise equal to decode_windows_ri on its
+   own windows, the same spot list on every rank, every rank's kernel
+   counts gathered to rank 0, and the hybrid engine's spots equal to the
+   device engine's. (c) serve --mesh 2x2 --dist-backend gloo --channels 8
+   under the launcher and serve --mesh 1x1 --dist-backend nccl in this
+   process print the spot lines of serve --runtime python on the same
+   synthetic source; (d) NCCL asked for two ranks on this one card (this
+   script with the argument mesh-refusal, two ranks) raises the port's
+   SharedDeviceError. (e) times a mesh step by CUDA events and the host
+   clock, the halo exchange's share of it and channel-windows/s: (a) in
+   turns with BatchedStreamDecoder on the same stream, (b) in its ranks
+   before their checks, with nothing else on the card (four ranks on one
+   card measure the exchange's cost, not scaling); (c) and (d) start once
+   (b) has timed, and run beside (b)'s checks.
 
 Every path is driven with the kernel counts set to 0 just before it and
 read just after. Prints a JSON line of the runtimes', wideband, OSD and
-multipass times, a JSON line of the CLI phase's results, then a JSON line
-of per-kernel results (launches on the main path, on the ring and on every
-other path, times, bound, library call) before the last line, and as the
-last line {"ok": true, "device": {...}}.
+multipass times, a JSON line of the CLI phase's results, a JSON line of
+the mesh phase's results, then a JSON line of per-kernel results (launches
+on the main path, on the ring and on every other path, times, bound,
+library call) before the last line, and as the last line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1248,6 +1274,8 @@ def phase_runtimes(card):
                         f"a whole frame and did not decode it")
         check_found(bfound, {c: win_holds[c] for c in range(min(
             n_ch, RING_SIGNAL)) if win_holds[c]}, "BatchedStreamDecoder")
+        if n_ch == RING_CH:
+            single = {"batched": bfound}
         short = len(res) - pushed
         require(short == (n_ch * n_win) % 128,
                 f"BatchedStreamDecoder flush gave {short} windows")
@@ -1314,7 +1342,10 @@ def phase_runtimes(card):
         f"{len(runs['host'])} windows, the host engine in all but "
         f"{len(cut)} windows that cut a frame {cut}; checkpoint at hop "
         f"{split} and resume: the same tail")
-    return launches, htod, z, ring
+    # {(window, channel): messages} of StreamDecoder's device engine
+    single["stream"] = {(k - PREFILL, chans[ch]): m
+                        for k, ch, m in runs["device"]}
+    return launches, htod, z, ring, single
 
 
 def time_runtime_turns(cases):
@@ -2257,6 +2288,472 @@ def phase_cli(card):
              "warmup_s": warm}, launches)
 
 
+# ---------------------------------------------------------------- phase 16
+
+MESH_WINS = {"1x1": 4, "2x2": 2}    # wins_per_shard of (a) and (b)
+MESH_CLI_CH = 8
+MESH_TIMEOUT_S = 300                # of each launcher subprocess
+
+
+def mesh_feed(dec, z):
+    """The stream hop by hop through a ShardedStreamDecoder, then its
+    flush: ({(window, channel): [messages]}, [(channel, window, message,
+    freq)] in the order the decoder returned them)."""
+    got = []
+    for k in range(RING_HOPS):
+        got += dec.push(hop_block(z, k))
+    got += dec.flush()
+    found = {}
+    for c, w, s in got:
+        found.setdefault((w, c), []).append(s.message)
+    return found, [(c, w, s.message, float(s.freq)) for c, w, s in got]
+
+
+def check_mesh_spots(found, starts, single, what):
+    """The mesh's spots against the single-device runtimes of phase 10
+    (BatchedStreamDecoder on every channel, StreamDecoder on two), window
+    by window as message sets, where the window holds a whole frame or
+    none; every whole frame decoded, the noise channels nothing. Returns
+    the windows that cut a frame and differ."""
+    cut = []
+    for name, ref in single.items():
+        for (j, c), msgs in ref.items():
+            cov = (coverage(starts[c], j * HOP) if c in starts else "none")
+            mine = sorted(set(found.get((j, c), [])))
+            theirs = sorted(set(msgs))
+            if cov == "partial":
+                if mine != theirs:
+                    cut.append((name, j, c, mine, theirs))
+                continue
+            require(mine == theirs,
+                    f"{what}: channel {c} window {j} holds {cov} frame: "
+                    f"{mine}, {name} {theirs}")
+    win = windower_starts()
+    check_found(found, {c: holds(starts, c, win) for c in starts
+                        if holds(starts, c, win)}, what)
+    return cut
+
+
+def mesh_step_timing(dec, x0, tail0, reps=3):
+    """ms per mesh step on (x0, tail0) (ShardedStreamDecoder.step: the
+    sharded decode, the gather, the spots) by CUDA events and by the host
+    clock, every rank in step behind a barrier; and the halo exchange alone
+    (extend_with_halo on this rank's block, the host-to-device copy of the
+    extended row not included) on the host clock."""
+    import torch
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.parallel.mesh import extend_with_halo
+    n = dec.step_len // dec.hop
+    dec.step(x0, tail0, n)                          # warm-up
+    ev, wall = [], []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        dec.step(x0, tail0, n)
+        e.record()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ev.append(s.elapsed_time(e))
+    x_ri, tail_ri = dec.dec.rank_block(x0, tail0)
+    ex = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extend_with_halo(x_ri, tail_ri, mesh=dec.mesh,
+                         block_len=x_ri.shape[2], halo=dec.halo)
+        torch.cuda.synchronize()
+        ex.append((time.perf_counter() - t0) * 1e3)
+    step_wall = sum(wall) / reps
+    return {"step_ms": sum(ev) / reps, "step_wall_ms": step_wall,
+            "exchange_ms": sum(ex) / reps,
+            "exchange_share": sum(ex) / reps / step_wall,
+            "rounds": (-(-dec.halo // x_ri.shape[2])
+                       if dec.n_time > 1 else 0),
+            "channel_windows_s": RING_CH * n / step_wall * 1e3,
+            "turns": {"step_ms": ev, "step_wall_ms": wall,
+                      "exchange_ms": ex}}
+
+
+def mesh_world_of_one(card, z, starts, single):
+    """(a) ShardedStreamDecoder on a 1x1 mesh over NCCL in this process."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.parallel.distributed import global_mesh, initialize
+    from uwspr_tpu_torch.parallel.mesh import ShardedStreamDecoder
+    from uwspr_tpu_torch.pipeline.stream import BatchedStreamDecoder
+    wins = MESH_WINS["1x1"]
+    n_win = len(windower_starts())
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                   rank=0)
+        try:
+            mesh = global_mesh(1, 1, "cuda")
+            dec = ShardedStreamDecoder(base_config(), mesh,
+                                       n_channels=RING_CH,
+                                       wins_per_shard=wins)
+            with KernelCalls() as calls:
+                reset_all_counters()
+                found, lines = mesh_feed(dec, z)
+                torch.cuda.synchronize()
+                launches, plain = read_counters()
+            log(f"[mesh] 1x1 (nccl, wins_per_shard={wins}): launches "
+                f"{launches}; plain calls {plain}")
+            require(launches["select_best"] > 0
+                    and launches["fano_decode"] > 0
+                    and all(v == 0 for v in plain.values()),
+                    f"mesh 1x1: launches {launches}, plain {plain}")
+            require(dec.stats.windows == RING_CH * n_win,
+                    f"mesh 1x1: {dec.stats.windows} channel-windows")
+            cut = check_mesh_spots(found, starts, single, "mesh 1x1")
+            calls.replay("mesh 1x1")
+            log(f"[mesh] 1x1: {len(lines)} spots in {dec.stats.windows} "
+                f"channel-windows ({dec.stats.steps} steps), equal to "
+                f"BatchedStreamDecoder's and StreamDecoder's on every window "
+                f"that holds a whole frame or none; {len(cut)} windows that "
+                f"cut a frame differ: {cut}")
+            x0 = z[:, :dec.step_len]
+            tail0 = z[:, dec.step_len:dec.step_len + dec.halo]
+            step = mesh_step_timing(dec, x0, tail0)
+            state = {}
+
+            def mesh_setup():
+                state["m"] = ShardedStreamDecoder(
+                    base_config(), mesh, n_channels=RING_CH,
+                    wins_per_shard=wins)
+
+            def batched_setup():
+                state["b"] = BatchedStreamDecoder(
+                    base_config(), n_channels=RING_CH, batch_windows=128,
+                    device="cuda")
+
+            def batched_run():
+                for k in range(RING_HOPS):
+                    state["b"].push(hop_block(z, k))
+                state["b"].flush()
+                return 1
+            def mesh_run():
+                mesh_feed(state["m"], z)
+                return 1
+            turns = time_runtime_turns([("mesh", mesh_setup, mesh_run),
+                                        ("batched", batched_setup,
+                                         batched_run)])
+        finally:
+            dist.destroy_process_group()
+    cw = RING_CH * n_win
+    run = {k: {"run_ms": v[0], "run_wall_ms": v[1],
+               "channel_windows_s": cw / v[1] * 1e3,
+               "turns_ms": v[2], "turns_wall_ms": v[3]}
+           for k, v in turns.items()}
+    log(f"[timing] {card}: mesh 1x1 (nccl) step of {RING_CH} x {wins} "
+        f"windows: {step['step_ms']:.3f} ms (events), "
+        f"{step['step_wall_ms']:.3f} ms wall (turns "
+        f"{fmt_turns(step['turns'])}); the halo (a concatenation at "
+        f"n_time = 1) {step['exchange_ms']:.4f} ms, "
+        f"{100 * step['exchange_share']:.3f} % of a step")
+    log(f"[timing] {card}: the stream ({RING_CH} x {RING_HOPS} hops, {cw} "
+        f"channel-windows) in turns mesh, batched, batched, mesh: mesh 1x1 "
+        f"{run['mesh']['run_wall_ms']:.1f} ms wall "
+        f"({run['mesh']['channel_windows_s']:.1f} channel-windows/s), "
+        f"BatchedStreamDecoder(batch_windows=128) "
+        f"{run['batched']['run_wall_ms']:.1f} ms wall "
+        f"({run['batched']['channel_windows_s']:.1f} channel-windows/s); "
+        f"events mesh {run['mesh']['run_ms']:.1f}, batched "
+        f"{run['batched']['run_ms']:.1f} ms")
+    return launches, lines, {"step": step, "stream": run, "cut": len(cut)}
+
+
+def launcher(n, *argv, env=None):
+    """python -m torch.distributed.run --standalone --nproc-per-node n
+    *argv from the repo's root, started, with its output piped."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2",
+               **(env or {}))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), *map(str, argv)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env=env)
+
+
+def finish(proc, what):
+    """(stdout, stderr) of a launcher process, which must exit 0 within
+    MESH_TIMEOUT_S; killed otherwise."""
+    try:
+        out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what}: timed out after {MESH_TIMEOUT_S} s")
+    require(proc.returncode == 0, f"{what} exited {proc.returncode}:\n"
+            f"{out[-3000:]}\n{err[-3000:]}")
+    return out, err
+
+
+def wait_for(path: pathlib.Path, proc, what):
+    """Until ``path`` exists; returns early when ``proc`` exited (finish()
+    then reports why), fails after MESH_TIMEOUT_S."""
+    t0 = time.perf_counter()
+    while not path.exists() and proc.poll() is None:
+        require(time.perf_counter() - t0 < MESH_TIMEOUT_S,
+                f"{what}: no {path.name} after {MESH_TIMEOUT_S} s")
+        time.sleep(0.2)
+
+
+def mesh_gloo_world(card, out, ranks, starts, single):
+    """(b) the results of four ranks on this card over gloo (mesh_rank):
+    the launcher's output and every rank's gathered results."""
+    for line in out.splitlines():
+        log(line)
+    n_win = len(windower_starts())
+    first = ranks[0]
+    for r in ranks:
+        what = f"mesh 2x2 rank {r['rank']}"
+        require(r["launches"]["select_best"] > 0
+                and r["launches"]["fano_decode"] > 0
+                and all(v == 0 for v in r["plain"].values()),
+                f"{what}: launches {r['launches']}, plain {r['plain']}")
+        require(r["hybrid_launches"]["select_best"] > 0
+                and all(v == 0 for v in r["hybrid_plain"].values()),
+                f"{what} hybrid: launches {r['hybrid_launches']}, plain "
+                f"{r['hybrid_plain']}")
+        require(r["bitwise"], f"{what}: packed output differs from "
+                f"decode_windows_ri on its own windows")
+        require(r["lines"] == first["lines"],
+                f"{what}: another spot list than rank 0's")
+        require(r["windows"] == RING_CH * n_win,
+                f"{what}: {r['windows']} channel-windows")
+        REPLAYED[what] = r["replay"]
+    found = {}
+    for c, w, m, _ in first["lines"]:
+        found.setdefault((w, c), []).append(m)
+    cut = check_mesh_spots(found, starts, single, "mesh 2x2")
+    key = [(c, w, m) for c, w, m, _ in first["lines"]]
+    require(key == [(c, w, m) for c, w, m, _ in first["hybrid_lines"]],
+            "mesh 2x2: the hybrid engine's spots differ from the device "
+            "engine's")
+    t = first["timing"]
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in first["launches"]}
+    hybrid = {k: sum(r["hybrid_launches"][k] for r in ranks)
+              for k in first["hybrid_launches"]}
+    log(f"[mesh] 2x2 (gloo, 4 ranks on cuda:0, wins_per_shard="
+        f"{MESH_WINS['2x2']}; a rank's parts {first['seconds']} s): every "
+        f"rank launched the "
+        f"selection and Fano kernels and no plain version (launches summed "
+        f"{launches}; hybrid {hybrid}), replayed its own calls bit-exact, "
+        f"returned the same {len(key)} spots, equal to the single-device "
+        f"runtimes on every window that holds a whole frame or none "
+        f"({len(cut)} cut windows differ: {cut}), and its packed output "
+        f"equals decode_windows_ri on its own windows; the hybrid engine "
+        f"gives the "
+        f"device engine's spots")
+    log(f"[timing] {card}: mesh 2x2 (gloo) step of {RING_CH} x "
+        f"{2 * MESH_WINS['2x2']} windows: {t['step_ms']:.3f} ms (events), "
+        f"{t['step_wall_ms']:.3f} ms wall; halo exchange ({t['rounds']} "
+        f"rounds through pinned host memory) {t['exchange_ms']:.3f} ms, "
+        f"{100 * t['exchange_share']:.2f} % of a step; "
+        f"{t['channel_windows_s']:.1f} channel-windows/s. Four ranks share "
+        f"one card: this measures the cost of the exchange, not scaling")
+    return launches, hybrid, {"step": t, "cut": len(cut),
+                              "rank_seconds": first["seconds"],
+                              "per_rank_timing": [r["timing"]
+                                                  for r in ranks]}
+
+
+def mesh_rank(out_dir):
+    """One rank of (b), under the launcher: first the step timing, with
+    nothing else on the card (rank 0 then writes out_dir/timed, on which
+    the parent starts (c) and (d)); then the device engine with its kernel
+    calls recorded and replayed, its packed output against
+    decode_windows_ri on its own windows, and the hybrid engine. Rank 0
+    gathers every rank's results into out_dir/mesh_2x2.json."""
+    sys.path.insert(0, str(ROOT))
+    t0 = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.parallel.distributed import global_mesh, initialize
+    from uwspr_tpu_torch.parallel.mesh import ShardedStreamDecoder
+    from uwspr_tpu_torch.utils import cuda_build
+    initialize("gloo")
+    try:
+        mesh = global_mesh(2, 2, "cuda")
+        cuda_build.load_library()
+        rank = dist.get_rank()
+        c, t = mesh.get_coordinate()
+        what = f"mesh 2x2 rank {rank}"
+        wins = MESH_WINS["2x2"]
+        z, _ = make_stream()
+        res = {"rank": rank, "coordinate": [c, t],
+               "card": torch.cuda.current_device()}
+        seconds = {"start": time.perf_counter() - t0}
+
+        def stream_decoder(engine="device"):
+            return ShardedStreamDecoder(base_config(), mesh,
+                                        n_channels=RING_CH,
+                                        wins_per_shard=wins, engine=engine)
+
+        def lap(name):
+            seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+        dec = stream_decoder()
+        x0 = z[:, :dec.step_len]
+        tail0 = z[:, dec.step_len:dec.step_len + dec.halo]
+        res["timing"] = mesh_step_timing(dec, x0, tail0)
+        dist.barrier()
+        if rank == 0:
+            (pathlib.Path(out_dir) / "timed").touch()
+        lap("timing")
+        dec = stream_decoder()
+        with KernelCalls() as calls:
+            reset_all_counters()
+            _, res["lines"] = mesh_feed(dec, z)
+            torch.cuda.synchronize()
+            res["launches"], res["plain"] = read_counters()
+        res["windows"], res["steps"] = dec.stats.windows, dec.stats.steps
+        lap("device")
+        calls.replay(what)
+        res["replay"] = REPLAYED[what]
+        lap("replay")
+        packed, _ = dec.dec.decode(x0, tail0)
+        ch_l = RING_CH // 2
+        own = np.stack([z[c * ch_l:(c + 1) * ch_l, s:s + FL]
+                        for s in ((t * wins + w) * HOP
+                                  for w in range(wins))], axis=1)
+        want = dec.dec.decoder.decode_windows_ri(
+            torch.from_numpy(to_ri(own.reshape(-1, FL))).cuda())
+        res["bitwise"] = bool(torch.equal(packed.reshape(want.shape), want))
+        lap("bitwise")
+        reset_all_counters()
+        _, res["hybrid_lines"] = mesh_feed(stream_decoder("hybrid"), z)
+        torch.cuda.synchronize()
+        res["hybrid_launches"], res["hybrid_plain"] = read_counters()
+        lap("hybrid")
+        res["seconds"] = {k: round(v, 2) for k, v in seconds.items()}
+        ranks = [None] * dist.get_world_size() if rank == 0 else None
+        dist.gather_object(res, ranks, dst=0)
+        if rank == 0:
+            (pathlib.Path(out_dir) / "mesh_2x2.json").write_text(
+                json.dumps(ranks))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_refusal():
+    """(d) under the launcher with two ranks: NCCL on this one card."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.parallel.distributed import (SharedDeviceError,
+                                                      global_mesh,
+                                                      initialize)
+    initialize("nccl")
+    try:
+        global_mesh(1, 2, "cuda")
+        print(f"rank {dist.get_rank()}: not refused", flush=True)
+    except SharedDeviceError as e:
+        print(f"REFUSED rank {dist.get_rank()}: {e}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_cli(card):
+    """(c) serve --mesh 2x2 over gloo under the launcher and --mesh 1x1
+    over NCCL in this process print the spot lines of serve --runtime
+    python on the same synthetic source; (d) runs beside it."""
+    common = ["serve", "--channels", MESH_CLI_CH, "--snr", SNR_DB]
+    t0 = time.perf_counter()
+    grid = launcher(4, "-m", "uwspr_tpu_torch.cli", *common, "--mesh", "2x2",
+                    "--dist-backend", "gloo")
+    refusal = launcher(2, ROOT / "chip_smoke.py", "mesh-refusal")
+    try:
+        one, one_err, one_launches, _ = cli_path(
+            [*common, "--mesh", "1x1", "--dist-backend", "nccl"],
+            ("select_best", "fano_decode"), "serve --mesh 1x1 (nccl)")
+        single, single_err, _, _ = cli_path(
+            [*common, "--runtime", "python"], ("select_best", "fano_decode"),
+            "serve --runtime python")
+        out, err = finish(grid, "serve --mesh 2x2 (gloo) under the launcher")
+        grid_wall = time.perf_counter() - t0
+        rout, rerr = finish(refusal, "the NCCL refusal")
+    finally:
+        for p in (grid, refusal):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    def spots(text):
+        return [ln for ln in text.splitlines() if ln.startswith("ch")]
+
+    def untagged(lines):            # "ch3 w5: ..." -> "ch3: ..."
+        return sorted(ln.split(" ", 1)[0] + ":" + ln.split(":", 1)[1]
+                      for ln in lines)
+    grid_spots, one_spots = spots(out), spots(one)
+    closing = [ln for ln in err.splitlines() if ln.startswith("# mesh 2x2")]
+    log(f"[mesh] cli: serve --mesh 2x2 --dist-backend gloo under the launcher "
+        f"({grid_wall:.1f} s): {len(grid_spots)} spots; {closing}")
+    # a step emits channel by channel, and the two meshes step over other
+    # window counts: the same lines, in another order
+    require(sorted(grid_spots) == sorted(one_spots),
+            f"cli --mesh 2x2 printed {grid_spots}, --mesh 1x1 {one_spots}")
+    require(untagged(grid_spots) == sorted(spots(single)),
+            f"cli --mesh printed {untagged(grid_spots)}, --runtime python "
+            f"{sorted(spots(single))}")
+    require(grid_spots and all(f": {EXPECTED} (" in ln for ln in grid_spots),
+            "cli --mesh: a spot that is not the sent message")
+    require(len(closing) == 1 and "(device)" in closing[0],
+            f"cli --mesh 2x2 closing line {closing}")
+    refused = [ln for ln in rout.splitlines() if ln.startswith("REFUSED")]
+    require(len(refused) == 2 and all("gloo" in ln for ln in refused),
+            f"NCCL on one card with two ranks was not refused: {rout}"
+            f"{rerr[-2000:]}")
+    log(f"[mesh] cli: --mesh 2x2 and --mesh 1x1 print the same "
+        f"{len(grid_spots)} spot lines, those of serve --runtime python; "
+        f"(d) {refused}")
+    return one_launches, {"spots": len(grid_spots), "closing": closing,
+                          "launcher_wall_s": grid_wall, "refusal": refused}
+
+
+def phase_mesh(card, single):
+    """The multi-device layer on the card (see the module doc, phase 16).
+    (b)'s ranks time their steps first; (c) and (d) start once they have,
+    and run while (b) finishes its checks. Returns (results, {path:
+    launches})."""
+    import tempfile
+    t0 = time.perf_counter()
+    z, starts = make_stream()
+    one_launches, _, one = mesh_world_of_one(card, z, starts, single)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        ranks = launcher(4, ROOT / "chip_smoke.py", "mesh-rank", tmp)
+        try:
+            wait_for(tmp / "timed", ranks, "mesh 2x2 (gloo)")
+            cli_launches, cli = mesh_cli(card)
+            out, _ = finish(ranks, "mesh 2x2 (gloo)")
+        finally:
+            if ranks.poll() is None:
+                ranks.kill()
+                ranks.communicate()
+        results = json.loads((tmp / "mesh_2x2.json").read_text())
+    grid_launches, hybrid_launches, grid = mesh_gloo_world(
+        card, out, results, starts, single)
+    seconds = time.perf_counter() - t0
+    log(f"[mesh] phase 16 in {seconds:.1f} s")
+    return ({"1x1": one, "2x2": grid, "cli": cli, "seconds": seconds},
+            {"mesh_1x1": one_launches, "mesh_2x2": grid_launches,
+             "mesh_2x2_hybrid": hybrid_launches,
+             "cli_mesh_1x1": cli_launches})
+
+
 # ---------------------------------------------------------------- phase 14
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
@@ -2584,11 +3081,12 @@ def main() -> int:
     launches = phase_slice(card, dec, ri, ri_c)
     host_launches, _ = phase_host_slice(card, hdec, ri)
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
-    ring_launches, htod, stream, ring = phase_runtimes(card)
+    ring_launches, htod, stream, ring, single = phase_runtimes(card)
     wide = phase_wideband(card)
     osd = phase_osd(card)
     multi = phase_multipass(card)
     cli, cli_launches = phase_cli(card)
+    mesh, mesh_launches = phase_mesh(card, single)
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
@@ -2614,7 +3112,7 @@ def main() -> int:
              "osd": osd["launches"],
              "multipass_device": multi["device"]["launches"],
              "multipass_hybrid": multi["hybrid"]["launches"],
-             **cli_launches}
+             **cli_launches, **mesh_launches}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
@@ -2639,6 +3137,7 @@ def main() -> int:
                           "passes2_ms", "passes1_ms")}
                           for k, v in multi.items()}}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
+    print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2647,4 +3146,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["mesh-rank"]:        # a rank of phase 16 (b)
+        sys.exit(mesh_rank(sys.argv[2]))
+    if sys.argv[1:] == ["mesh-refusal"]:      # a rank of phase 16 (d)
+        sys.exit(mesh_refusal())
     sys.exit(main())

@@ -167,9 +167,69 @@ def test_sweep_cli(capsys):
 
 
 def test_mesh_refused_with_the_queue_item(capsys):
+    """--mesh runs since the multi-device queue item landed; it is refused
+    only without a named backend, which nothing chooses for the caller."""
     with pytest.raises(SystemExit) as e:
         port("serve", "--mesh", "2x4")
-    assert "ROADMAP.md queue 1 item 7" in str(e.value.code)
+    assert "--mesh needs --dist-backend: nccl" in str(e.value.code)
+
+
+MESH_SERVE = ("--channels", "2", "--windows", "18", "--duty", "0.5",
+              "--maxcycles", "50")
+
+
+def test_serve_mesh_1x1_prints_the_python_runtime_spots(capsys):
+    """A world of one over gloo on the synthetic source prints the spots of
+    serve --runtime python with the same (hybrid) engine, one line per
+    (channel, window) spot, and leaves no process group behind."""
+    import torch.distributed as dist
+    port("serve", "--mesh", "1x1", "--dist-backend", "gloo", *MESH_SERVE)
+    mesh = capsys.readouterr()
+    assert not dist.is_initialized()
+    port("serve", "--runtime", "python", "--engine", "hybrid", *MESH_SERVE)
+    single = capsys.readouterr()
+    got = [re.sub(r"^(ch\d+) w\d+:", r"\1:", ln)
+           for ln in mesh.out.splitlines()]
+    assert got and sorted(got) == sorted(single.out.splitlines())
+    assert re.search(r"# mesh 1x1 \(hybrid\): 2 steps, 10 windows, \d+ "
+                     r"frames sent, 3 spots, \d+ window-samples/s", mesh.err)
+    assert "# 10 windows" in single.err
+
+
+def test_serve_mesh_reads_stdin_on_rank_0(monkeypatch, capsys):
+    """--input - under --mesh: rank 0 reads cf32 from stdin and broadcasts
+    each block (a world of one here); the frame's window decodes."""
+    import io
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    z = np.concatenate([synthesize_frame("VE3EMB", "FN25", 30),
+                        np.zeros(3375, np.complex64)])
+    iq = np.stack([z.real, z.imag], axis=1).astype("<f4").tobytes()
+    monkeypatch.setattr(sys, "stdin", argparse.Namespace(
+        buffer=io.BytesIO(iq)))
+    port("serve", "--mesh", "1x1", "--dist-backend", "gloo", "--input", "-",
+         "--channels", "1", "--maxcycles", "50")
+    cap = capsys.readouterr()
+    assert "ch0 w0: VE3EMB FN25 30 (" in cap.out, cap.err
+    assert "# mesh 1x1 (hybrid): 1 steps, 2 windows, 1 spots" in cap.err
+
+
+def test_serve_mesh_needs_a_launcher(capsys):
+    with pytest.raises(SystemExit) as e:
+        port("serve", "--mesh", "2x1", "--dist-backend", "gloo")
+    assert ("start it under a launcher, python -m torch.distributed.run "
+            "--nproc-per-node 2" in str(e.value.code))
+
+
+@pytest.mark.parametrize("argv,why", [
+    (("--runtime", "native"), "drop --runtime native"),
+    (("--passes", "2"), "drop it for --mesh")])
+def test_serve_mesh_refuses_what_jax_refuses(argv, why, capsys):
+    for run in (lambda: port("serve", "--mesh", "1x1", "--dist-backend",
+                             "gloo", *argv),
+                lambda: jax("serve", "--mesh", "1x1", *argv)):
+        with pytest.raises(SystemExit) as e:
+            run()
+        assert why in str(e.value.code)
 
 
 def test_default_device_needs_cuda(frame, capsys):

@@ -424,7 +424,8 @@ def test_guard_walks_the_user_facing_surfaces():
     for rel in ("cli.py", "grc.py", "frontend/downconvert.py",
                 "io/wavfile.py", "io/audio.py", "utils/spotlog.py",
                 "utils/profiler.py", "utils/roofline.py",
-                "pipeline/sweep.py"):
+                "pipeline/sweep.py", "parallel/__init__.py",
+                "parallel/distributed.py", "parallel/mesh.py"):
         assert f"uwspr_tpu_torch/{rel}" in PORT_FILES, rel
     assert len(_jax_package_uses(ast.parse(
         "import jax\nimport jax.numpy as jnp\nfrom jax import lax\n"

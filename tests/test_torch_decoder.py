@@ -441,6 +441,16 @@ mp = StreamDecoder(plain, engine="device", passes=2, device="cpu")
 print("passes", [(s.message, s.pass_index)
                  for _, r in mp.push(np.concatenate([z, pad]))
                  for s in r.spots])
+import tempfile
+import torch.distributed as dist
+from uwspr_tpu_torch.parallel.distributed import global_mesh, initialize
+from uwspr_tpu_torch.parallel.mesh import ShardedStreamDecoder
+with tempfile.TemporaryDirectory() as d:         # a world of one, gloo
+    initialize("gloo", init_method=f"file://{d}/store", world_size=1, rank=0)
+    msd = ShardedStreamDecoder(plain, global_mesh(1, 1, "cpu"))
+    print("mesh", [(w, s.message) for _, w, s in
+                   msd.push(np.concatenate([z, pad])) + msd.flush()])
+    dist.destroy_process_group()
 leaked = sorted(m for m in sys.modules if m.startswith("jax")
                 or m == "uwspr_tpu" or m.startswith("uwspr_tpu."))
 assert not leaked, leaked
@@ -464,6 +474,7 @@ def test_port_never_imports_jax(tmp_path):
     assert "osd [('VE3EMB FN25 30', 2)]" in proc.stdout
     assert "wideband ['VE3EMB FN25 30']" in proc.stdout
     assert "passes [('VE3EMB FN25 30', 0)]" in proc.stdout
+    assert "mesh [(0, 'VE3EMB FN25 30')]" in proc.stdout
 
 
 def test_entry_points_take_only_port_configs():

@@ -17,8 +17,15 @@ Counterpart of uwspr_tpu/cli.py, with its subcommands and flags, except:
   ``with_serving_defaults(config, 1)``.
 - ``serve`` takes the soundcard only for ``--input audio`` or
   ``audio:<device>``; any other name is a file. ``--maxcycles`` and
-  ``--jiggles`` reach every runtime. ``--mesh`` exits: multi-device
-  serving is not ported yet.
+  ``--jiggles`` reach every runtime.
+- ``serve --mesh CxT`` runs one torch.distributed rank per (channel,
+  time) shard and names its backend, ``--dist-backend nccl`` (a card per
+  rank) or ``gloo`` (the CPU, or ranks that share a card); nothing chooses
+  one. A mesh of more than one rank runs under a launcher, ``python -m
+  torch.distributed.run --nproc-per-node C*T``; ``1x1`` runs in a world of
+  one. Every rank reads the synthetic and file sources itself; rank 0
+  reads stdin and the soundcard and broadcasts each block. Rank 0 alone
+  prints and logs.
 - The GRC live receiver reads s16 from stdin only when no capture backend
   opens; an error during capture propagates.
 - ``decode`` and ``serve`` close with the lanes the device engine's lane
@@ -30,9 +37,11 @@ Counterpart of uwspr_tpu/cli.py, with its subcommands and flags, except:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,8 +61,6 @@ from uwspr_tpu_torch.protocol.modulate import synthesize_frame
 from uwspr_tpu_torch.utils.spotlog import SpotLogger
 
 DEVICES = ("cuda", "cpu")
-MESH_REFUSAL = ("serve --mesh: multi-device serving is not ported to "
-                "uwspr_tpu_torch yet (ROADMAP.md queue 1 item 7)")
 
 
 def _device(args) -> torch.device:
@@ -382,6 +389,137 @@ def _serve_source(args, hop, info, device):
     return _file_source(args, hop, device)
 
 
+def _parse_mesh(spec: str):
+    """'CxT' -> (n_channel, n_time) with a helpful error."""
+    try:
+        c, t = spec.lower().split("x")
+        c, t = int(c), int(t)
+    except ValueError:
+        c = t = 0
+    if c < 1 or t < 1:
+        raise SystemExit(f"--mesh expects CxT (e.g. 2x4), got {spec!r}")
+    return c, t
+
+
+def _broadcast_source(source, rank: int):
+    """Rank 0 reads ``source`` (None elsewhere) and broadcasts each block;
+    every rank yields the same blocks. The end of the stream goes out as
+    None."""
+    import torch.distributed as dist
+    blocks = iter(source) if rank == 0 else None
+    while True:
+        box = [next(blocks, None) if rank == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return
+        yield box[0]
+
+
+def _cmd_serve_mesh(args):
+    """serve --mesh CxT: the stream sharded over a (channel, time) mesh of
+    torch.distributed ranks and decoded by ShardedStreamDecoder, as
+    uwspr_tpu/cli.py:349-407 does over a jax mesh. External inputs are one
+    channel, replicated across --channels."""
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.parallel.distributed import (SharedDeviceError,
+                                                      global_mesh, initialize)
+    from uwspr_tpu_torch.parallel.mesh import ShardedStreamDecoder
+
+    if args.runtime == "native":
+        raise SystemExit("--mesh uses the sharded runtime; drop --runtime "
+                         "native")
+    if args.passes > 1:
+        raise SystemExit("--passes is a single-device (python runtime) "
+                         "feature; drop it for --mesh")
+    device = _device(args)
+    engine = args.engine
+    if engine == "auto":
+        # the device engine on a card; on the CPU its plain Fano walks a
+        # cut frame's lanes to the whole budget, so the host Fano (hybrid)
+        # is the default there, as the JAX CLI takes hybrid off the TPU
+        engine = "device" if device.type == "cuda" else "hybrid"
+    elif engine not in ("device", "hybrid"):
+        raise SystemExit("--mesh serves through the sharded device engines; "
+                         "use --engine device or hybrid")
+    if args.dist_backend is None:
+        raise SystemExit("--mesh needs --dist-backend: nccl (one rank per "
+                         "card) or gloo (the CPU, or ranks that share a "
+                         "card)")
+    if args.dist_backend == "nccl" and device.type != "cuda":
+        raise SystemExit("--dist-backend nccl needs --device cuda")
+    n_ch, n_time = _parse_mesh(args.mesh)
+    external = args.input != "synthetic"
+    channels = max(1, args.channels) if external else args.channels
+    if channels % n_ch:
+        raise SystemExit(f"--channels {channels} must be a multiple of the "
+                         f"mesh channel axis {n_ch}")
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if not launched and n_ch * n_time > 1:
+        raise SystemExit(
+            f"--mesh {args.mesh} runs {n_ch * n_time} ranks, one process "
+            f"each: start it under a launcher, python -m "
+            f"torch.distributed.run --nproc-per-node {n_ch * n_time} -m "
+            f"uwspr_tpu_torch.cli serve --mesh {args.mesh} ...")
+    with contextlib.ExitStack() as stack:
+        if launched:
+            created = initialize(args.dist_backend)
+        else:                               # a world of one
+            tmp = stack.enter_context(tempfile.TemporaryDirectory())
+            created = initialize(args.dist_backend,
+                                 init_method=f"file://{tmp}/store",
+                                 world_size=1, rank=0)
+        if created:
+            stack.callback(dist.destroy_process_group)
+        try:
+            mesh = global_mesh(n_ch, n_time, device.type)
+        except (ValueError, SharedDeviceError) as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from None
+        rank = dist.get_rank()
+        ht = HashTable.load(args.hashtable) if args.hashtable else HashTable()
+        sd = ShardedStreamDecoder(_args_config(args), mesh,
+                                  n_channels=channels,
+                                  wins_per_shard=args.wins_per_shard,
+                                  hashtable=ht, engine=engine)
+        info = {"sent": 0}
+        if args.input == "-" or _is_soundcard(args.input):
+            source = _broadcast_source(
+                _serve_source(args, sd.hop, info, device) if rank == 0
+                else None, rank)
+        else:
+            source = _serve_source(args, sd.hop, info, device)
+        logger = _logger(args) if rank == 0 else None
+
+        def emit(results):
+            if rank:
+                return
+            for ch, w, s in results:
+                print(f"ch{ch} w{w}: {s.message} ({s.freq:+.2f} Hz)",
+                      flush=True)
+                if logger:
+                    logger.log(s)
+
+        t0 = time.time()
+        for block in source:
+            if block.shape[0] != channels:
+                block = np.broadcast_to(block, (channels, block.shape[-1]))
+            emit(sd.push(block))
+        emit(sd.flush())
+        dt = time.time() - t0
+        if rank:
+            return
+        st = sd.stats
+        sent = f"{info['sent']} frames sent, " if not external else ""
+        print(f"# mesh {n_ch}x{n_time} ({engine}): {st.steps} steps, "
+              f"{st.windows} windows, {sent}{st.spots} spots, "
+              f"{st.windows * 45000 / max(dt, 1e-9):.0f} window-samples/s",
+              file=sys.stderr)
+        if logger:
+            logger.close()
+        if args.hashtable:
+            ht.save(args.hashtable)
+
+
 def _cmd_serve(args):
     """Continuous receiver: decode a live or synthetic multichannel stream.
 
@@ -390,7 +528,7 @@ def _cmd_serve(args):
     soundcard; any other value is a .c2/.wav path to follow (--repeat to
     loop). External inputs are single-channel."""
     if args.mesh:
-        raise SystemExit(MESH_REFUSAL)
+        return _cmd_serve_mesh(args)
     device = _device(args)
     external = args.input != "synthetic"
     channels = 1 if external else args.channels
@@ -726,7 +864,20 @@ def _parser() -> argparse.ArgumentParser:
                         "device-resident sample ring, hop-only ingest "
                         "(RingServe)")
     v.add_argument("--mesh", default=None, metavar="CxT",
-                   help="multi-device serving; not ported yet (exits)")
+                   help="serve through a (channel, time) mesh of "
+                        "torch.distributed ranks (ShardedStreamDecoder; "
+                        "e.g. 2x2: channels sharded, the time axis decodes "
+                        "hop blocks with a chained halo exchange); more "
+                        "than one rank runs under python -m "
+                        "torch.distributed.run --nproc-per-node C*T")
+    v.add_argument("--wins-per-shard", type=int, default=4,
+                   help="windows decoded per time shard per mesh step "
+                        "(larger amortizes the halo exchange; adds "
+                        "step latency)")
+    v.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="--mesh's torch.distributed backend, named by the "
+                        "caller: nccl (one rank per card) or gloo (the "
+                        "CPU, or ranks that share a card)")
     v.add_argument("--maxcycles", type=int, default=None,
                    help="Fano budget in cycles/bit (default: the reference "
                         "10000; smaller trades deep-SNR sensitivity for "
