@@ -178,11 +178,33 @@ Phases, each raising on failure (nothing is caught):
    before their checks, with nothing else on the card (four ranks on one
    card measure the exchange's cost, not scaling); (c) and (d) start once
    (b) has timed, and run beside (b)'s checks.
+17. (run after 16, before the timing of 14) the result harnesses
+   (uwspr_tpu_torch/harness/), each path with the kernel counts set to 0
+   just before it and read just after: (a) python -m
+   uwspr_tpu_torch.harness.bench as a process of its own: its last stdout
+   line parses with bench.py's keys and a value above 0, its record says
+   128/128 with the selection and Fano kernels launched (its own
+   counters) and no plain version called, and it imports no jax* or
+   uwspr_tpu* module (-X importtime); (b) the SNR sweep's -29 and -30 dB
+   points, 50 trials, with the device and hybrid engines, the earlier
+   points' trials drawn and skipped: equal trial by trial and within
+   tolerance of SWEEP_r05.json (harness/common.py: 2 trials a point, 4 a
+   curve); (c) the device OSD sweep at -30 dB, 25 trials, order 4: no
+   false-valid spot, Fano and OSD rates within tolerance of
+   SWEEP_OSD_DEVICE_r05.json; (d) the matrix row noise_only_serving (128
+   noise windows): no spot; (e) the multipass row at -12 dB (host engine,
+   probe and selection kernels) on the trials that fit 20 s: the strong
+   frame decodes in each, the weak frame misses no more trials than
+   MULTIPASS_r02.json's plus the tolerance. Every kernel call of (b) to
+   (e), and of one decode of (a)'s decoder on (a)'s scene in this process,
+   is recorded and replayed as in 11 to 13; the host engine's probe_powers
+   calls of (e) through probe_powers_plain within phase 5's tolerance.
 
 Every path is driven with the kernel counts set to 0 just before it and
 read just after. Prints a JSON line of the runtimes', wideband, OSD and
 multipass times, a JSON line of the CLI phase's results, a JSON line of
-the mesh phase's results, then a JSON line of per-kernel results (launches
+the mesh phase's results, a JSON line of the harness phase's results,
+then a JSON line of per-kernel results (launches
 on the main path, on the ring and on every other path, times, bound,
 library call) before the last line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1521,18 +1543,25 @@ def decode_timed(dec, ri_c, reps=1):
 class KernelCalls:
     """While active, keeps a host copy of the inputs and outputs of every
     select_best and fano_decode_batch call that the device engine makes
-    (pipeline/device_decoder.py binds both names), so that replay() can hold
-    each call against its plain oracle afterwards. Host copies leave the
-    card's peak memory as the path alone has it."""
+    (pipeline/device_decoder.py binds both names), and of every select_best
+    and probe_powers call of the host engine (coarse/search.py and
+    demod/finesync.py bind them), so that replay() can hold each call
+    against its plain oracle afterwards. Host copies leave the card's peak
+    memory as the path alone has it."""
 
     def __enter__(self):
         import torch
 
+        from uwspr_tpu_torch.coarse import search
+        from uwspr_tpu_torch.demod import finesync
         from uwspr_tpu_torch.pipeline import device_decoder as ddm
-        self.ddm = ddm
-        self.orig = (ddm.select_best, ddm.fano_decode_batch)
-        self.select, self.fano = [], []
-        select_k, fano_k = self.orig
+        self.ddm, self.search, self.finesync = ddm, search, finesync
+        self.orig = (ddm.select_best, ddm.fano_decode_batch,
+                     search.select_best, finesync.probe_powers)
+        self.select, self.fano, self.probe = [], [], []
+        select_k, fano_k, host_select_k, probe_k = self.orig
+        require(select_k is host_select_k, "the engines bind different "
+                "select_best functions")
 
         def select(grid, is_nl, *, threshold):
             best, idx = select_k(grid, is_nl, threshold=threshold)
@@ -1548,23 +1577,34 @@ class KernelCalls:
                               (active != 0).cpu(), delta, maxcycles,
                               {k: v.cpu() for k, v in out.items()}))
             return out
+
+        def probe(z_ri, lags, freqs, drift_sym, *, n_lags):
+            p = probe_k(z_ri, lags, freqs, drift_sym, n_lags=n_lags)
+            self.probe.append((z_ri.cpu(), lags.cpu(), freqs.cpu(),
+                               drift_sym.cpu(), n_lags, p.cpu()))
+            return p
         ddm.select_best, ddm.fano_decode_batch = select, fano
+        search.select_best, finesync.probe_powers = select, probe
         return self
 
     def __exit__(self, *exc):
-        self.ddm.select_best, self.ddm.fano_decode_batch = self.orig
+        (self.ddm.select_best, self.ddm.fano_decode_batch,
+         self.search.select_best, self.finesync.probe_powers) = self.orig
 
     def replay(self, what):
         """Every recorded selection call through select_best_plain on the
         card (best bitwise, index equal); every Fano call's active lanes
         through the native C++ decoder at the call's mettab, delta and
         budget (success, data, metric, cycles, maxnp equal), its inactive
-        lanes to the kernel's contract. Records the calls and lanes
-        replayed, and the largest Fano field difference (0 when bit-exact),
-        in REPLAYED."""
+        lanes to the kernel's contract; every probe_powers call through
+        probe_powers_plain on the card (probe_error's tolerance). Records the
+        calls and lanes replayed, the largest Fano field difference (0 when
+        bit-exact) and the largest probe power difference in REPLAYED."""
         import torch
 
+        from uwspr_tpu_torch.device import exact_f32
         from uwspr_tpu_torch.fec.host import fano_decode_batch_host
+        from uwspr_tpu_torch.ops import probe as prb
         from uwspr_tpu_torch.ops import select as sel
         t0 = time.perf_counter()
         n_sel = 0
@@ -1599,19 +1639,33 @@ class KernelCalls:
                     f"{what}: inactive Fano lanes break the contract")
             n_act += int(a.sum())
             n_timeout += int((k["cycles"][a] >= mc * 81).sum())
+        perr, n_cand = 0.0, 0
+        for z_ri, lags, freqs, dsym, n_lags, pk in self.probe:
+            with torch.no_grad(), exact_f32():
+                pp = prb.probe_powers_plain(z_ri.cuda(), lags.cuda(),
+                                            freqs.cuda(), dsym.cuda(),
+                                            n_lags=n_lags)
+            perr = max(perr, probe_error(pk.cuda(), pp, f"{what}: the "
+                                         f"path's call {tuple(pk.shape)}"))
+            n_cand += freqs.shape[0]
         log(f"[{what}] the path's own kernel inputs replayed: "
             f"{len(self.select)} select_best calls ({n_sel} lanes) == "
             f"select_best_plain (best bitwise, idx equal); "
             f"{len(self.fano)} fano_decode calls ({n_act} active lanes, "
             f"{n_timeout} full-budget timeouts) == native fano_native.cc "
             f"(bit-exact), inactive lanes to contract; "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{len(self.probe)} probe_powers calls ({n_cand} candidates) == "
+            f"probe_powers_plain within rtol {PROBE_RTOL} atol {PROBE_ATOL} "
+            f"(max |diff| {perr:.3g}); {time.perf_counter() - t0:.2f} s")
         REPLAYED[what] = {"select_calls": len(self.select),
                           "select_lanes": n_sel,
                           "fano_calls": len(self.fano),
                           "fano_active_lanes": n_act,
                           "fano_timeouts": n_timeout,
-                          "fano_max_abs_err": err}
+                          "fano_max_abs_err": err,
+                          "probe_calls": len(self.probe),
+                          "probe_candidates": n_cand,
+                          "probe_max_abs_err": perr}
 
 
 REPLAYED = {}           # path -> the kernel calls its replay held to oracles
@@ -2754,6 +2808,218 @@ def phase_mesh(card, single):
              "cli_mesh_1x1": cli_launches})
 
 
+# ---------------------------------------------------------------- phase 17
+
+HARNESS_SWEEP_SNRS = (-29, -30)     # the knee of SWEEP_r05.json's curves
+HARNESS_OSD_SNR = -30.0
+HARNESS_MULTIPASS_DB = -12.0
+HARNESS_MULTIPASS_S = 20.0          # the multipass trials' time budget
+
+
+def harness_path(kernels, what, fn):
+    """fn() with every kernel count set to 0 just before it and read just
+    after: the path's kernels launched, no plain version called; then every
+    kernel call of the run replayed against its plain version on the same
+    inputs (KernelCalls.replay). Returns (fn's result, launches, seconds,
+    the time taken by the recording's host copies included)."""
+    import torch
+    with KernelCalls() as calls:
+        reset_all_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, plain = read_counters()
+    log(f"[harness] {what}: launches {launches}; plain calls {plain}; "
+        f"{seconds:.2f} s")
+    require(all(launches[k] > 0 for k in kernels),
+            f"harness {what}: a kernel of the path was not launched: "
+            f"{launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"harness {what}: a plain version ran on the path: {plain}")
+    calls.replay(f"harness {what}")
+    return out, launches, seconds
+
+
+def harness_bench(card, tmp):
+    """(a) python -m uwspr_tpu_torch.harness.bench as a process of its own
+    (-X importtime lists its modules): its last stdout line parses, with a
+    value above 0; its record says 128/128 and gives the launches, read by
+    the wrappers' counters in that process."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "uwspr_tpu_torch.harness.bench", "--out", str(tmp)],
+        capture_output=True, text=True, cwd=tmp, env=env, timeout=300)
+    wall = time.perf_counter() - t0
+    require(proc.returncode == 0, f"harness.bench exited {proc.returncode}: "
+            f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    rec = json.loads((tmp / "bench.json").read_text())
+    mods = [ln.split("|")[2].strip() for ln in proc.stderr.splitlines()
+            if ln.startswith("import time:") and ln.count("|") == 2][1:]
+    leaked = [m for m in mods if m.split(".")[0].startswith("jax")
+              or (m.split(".")[0].startswith("uwspr")
+                  and m.split(".")[0] != "uwspr_tpu_torch")]
+    # the harness runs as __main__; its imports include harness.common
+    require(not leaked and "uwspr_tpu_torch.harness.common" in mods,
+            f"harness.bench imported {leaked}")
+    require(set(line) == {"metric", "value", "unit", "vs_baseline"}
+            and line["metric"] == "window_samples_per_s_per_chip"
+            and line["value"] > 0 and rec["decoded"] == "128/128"
+            and rec["card"] == card and rec["pass"],
+            f"harness.bench printed {line}, record {rec['decoded']}")
+    launches = rec["kernel_launches"]
+    require(launches["select_best"] > 0 and launches["fano_decode"] > 0
+            and not any(rec["plain_calls"].values()),
+            f"harness.bench launches {launches}, plain {rec['plain_calls']}")
+    log(f"[harness] {card}: harness.bench in its own process: {line}; "
+        f"{rec['decoded']} at {rec['ms_per_window']:.4f} ms/window; "
+        f"launches {launches}; {len(mods)} modules, none jax* or "
+        f"uwspr_tpu*; wall {wall:.2f} s")
+    # the same decoder on the same scene in this process, so that its
+    # kernel calls can be replayed against their plain versions
+    import torch
+
+    from uwspr_tpu_torch.harness import bench, scenes
+    k = bench.knobs({})
+    dec = bench.make_decoder(k, torch.device("cuda"))
+    windows, expected = scenes.bench_windows(k["windows"], k["snr_db"])
+    ri_c = torch.from_numpy(scenes.to_ri(windows)).cuda()
+    packed, _, _ = path_run(dec, ri_c, ("select_best", "fano_decode"),
+                            "harness bench")
+    ok = bench.decoded(dec, packed, expected)
+    require(ok == k["windows"], f"harness bench in this process: {ok}/"
+            f"{k['windows']} decoded")
+    return {"line": line, "ms_per_window": rec["ms_per_window"],
+            "wall_s": wall}, launches
+
+
+def harness_sweeps():
+    """(b) the sweep's -29 and -30 dB points, 50 trials, with the device and
+    hybrid engines, the earlier points drawn and skipped."""
+    from uwspr_tpu_torch.harness import common, sweeps
+    configs = sweeps.curve_configs(sweeps.TRIALS)
+    ref = common.load_record(sweeps.REFERENCE)["curves"]
+    out, launches = {}, {}
+    for name, kernels in (("device_serving", ("select_best", "fano_decode")),
+                          ("hybrid_serving", ("select_best",))):
+        engine, cfg = configs[name]
+        (res, _), launches[name], secs = harness_path(
+            kernels, f"sweep {name} {HARNESS_SWEEP_SNRS} dB",
+            lambda: sweeps.run_curve(engine, cfg, HARNESS_SWEEP_SNRS,
+                                     sweeps.TRIALS, device="cuda"))
+        rates = {p: sum(o) / sweeps.TRIALS for p, o in res.items()}
+        vs = common.vs_reference(rates, ref[name]["decode_rate"], name,
+                                 sweeps.TRIALS)
+        log(f"[harness] sweep {name}: {rates} against "
+            f"{ {p: ref[name]['decode_rate'][p] for p in rates} } "
+            f"(sum |diff| {vs['sum_abs_diff']} trials) in {secs:.1f} s")
+        require(vs["pass"], f"harness sweep {name} off the record: {vs}")
+        out[name] = {"outcomes": res, "rates": rates, "seconds": secs}
+    dev, hyb = (out[k]["outcomes"] for k in ("device_serving",
+                                             "hybrid_serving"))
+    require(dev == hyb, f"harness sweep: device {dev} != hybrid {hyb}")
+    return out, launches
+
+
+def harness_osd():
+    """(c) the device OSD sweep at -30 dB, 25 trials, at the record's
+    configuration (order 4)."""
+    from uwspr_tpu_torch.harness import common, osd_sweeps
+    base, deep = osd_sweeps.decoders("device", osd_sweeps.DEPTHS["device"],
+                                     osd_sweeps.TRIALS, device="cuda")
+    out, launches, secs = harness_path(
+        ("select_best", "fano_decode"), f"OSD device sweep "
+        f"{HARNESS_OSD_SNR} dB", lambda: osd_sweeps.run_point(
+            "device", base, deep, HARNESS_OSD_SNR, osd_sweeps.TRIALS))
+    r = osd_sweeps.row(HARNESS_OSD_SNR, out, secs)
+    rec = {"reference": osd_sweeps.REFERENCES["device"],
+           "trials": osd_sweeps.TRIALS, "results": [r]}
+    osd_sweeps.checks(rec)
+    log(f"[harness] OSD device sweep {HARNESS_OSD_SNR} dB: fano "
+        f"{r['fano_rate']}, osd {r['osd_rate']}, false "
+        f"{r['false_valid_rate']}; against the record "
+        f"{ {k: v['points'] for k, v in rec['vs_reference'].items()} }")
+    require(all(rec["exact"].values()) and all(
+        v["pass"] for v in rec["vs_reference"].values()),
+        f"harness OSD device sweep: {rec['exact']} {rec['vs_reference']}")
+    return {k: r[k] for k in ("fano_rate", "osd_rate", "false_valid_rate",
+                              "seconds")}, launches
+
+
+def harness_noise_only():
+    """(d) the matrix row noise_only_serving: 128 noise windows, no spot."""
+    from uwspr_tpu_torch.harness import matrix
+    row, launches, _ = harness_path(
+        ("select_best",), "matrix noise_only_serving",
+        lambda: matrix.row_noise_only("cuda"))
+    # the row's times hold the recording's host copies: not kept here
+    log(f"[harness] matrix noise_only_serving: {row['spots_emitted']} "
+        f"spots")
+    require(row["exact"]["no_spot"], f"harness noise-only: {row}")
+    return {"spots_emitted": row["spots_emitted"]}, launches
+
+
+def harness_multipass():
+    """(e) the multipass row at -12 dB, host engine, on the trials that fit
+    HARNESS_MULTIPASS_S: the strong frame decodes in each; the weak frame's
+    misses within the record's plus the tolerance."""
+    from uwspr_tpu_torch.harness import common, multipass
+    dec = multipass.make_decoder("cuda")
+    t0 = time.perf_counter()
+
+    def trials():
+        t = []
+        while len(t) < multipass.TRIALS and (
+                time.perf_counter() - t0 < HARNESS_MULTIPASS_S):
+            t.append(multipass.trial(dec, HARNESS_MULTIPASS_DB, len(t)))
+        return t
+    out, launches, secs = harness_path(
+        ("probe_powers", "select_best"),
+        f"multipass {HARNESS_MULTIPASS_DB} dB", trials)
+    ref = next(r for r in common.load_record(multipass.REFERENCE)["results"]
+               if r["weak_rel_db"] == HARNESS_MULTIPASS_DB)
+    n = len(out)
+    strong, single, multi = (sum(o[i] for o in out) for i in range(3))
+    ref_miss = round((1 - ref["weak_rate_multipass"]) * multipass.TRIALS)
+    ref_single = round(ref["weak_rate_single_pass"] * multipass.TRIALS)
+    log(f"[harness] multipass {HARNESS_MULTIPASS_DB} dB, trials 0..{n - 1}"
+        f": strong {strong}/{n}, weak in pass 0 {single}/{n}, after the "
+        f"second pass {multi}/{n} (record over 25: "
+        f"{ref['weak_rate_single_pass']}, {ref['weak_rate_multipass']}) in "
+        f"{secs:.1f} s")
+    require(strong == n and n - multi <= ref_miss + common.POINT_TOL
+            and single <= ref_single + common.POINT_TOL,
+            f"harness multipass: {out}")
+    return {"trials": n, "strong": strong, "single": single, "multi": multi,
+            "seconds": secs}, launches
+
+
+def phase_harness(card):
+    """The result harnesses (uwspr_tpu_torch/harness/; see the module doc,
+    phase 17). Returns (results, {path: launches})."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        bench, bench_launches = harness_bench(card, pathlib.Path(d))
+    sweep, sweep_launches = harness_sweeps()
+    osd, osd_launches = harness_osd()
+    noise, noise_launches = harness_noise_only()
+    multi, multi_launches = harness_multipass()
+    seconds = time.perf_counter() - t0
+    log(f"[harness] phase 17 in {seconds:.1f} s")
+    return ({"bench": bench, "sweeps": sweep, "osd_device": osd,
+             "noise_only": noise, "multipass": multi, "seconds": seconds},
+            {"harness_bench": bench_launches,
+             "harness_sweep_device": sweep_launches["device_serving"],
+             "harness_sweep_hybrid": sweep_launches["hybrid_serving"],
+             "harness_osd_device": osd_launches,
+             "harness_noise_only": noise_launches,
+             "harness_multipass": multi_launches})
+
+
 # ---------------------------------------------------------------- phase 14
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
@@ -3087,6 +3353,7 @@ def main() -> int:
     multi = phase_multipass(card)
     cli, cli_launches = phase_cli(card)
     mesh, mesh_launches = phase_mesh(card, single)
+    harness, harness_launches = phase_harness(card)
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
@@ -3112,7 +3379,7 @@ def main() -> int:
              "osd": osd["launches"],
              "multipass_device": multi["device"]["launches"],
              "multipass_hybrid": multi["hybrid"]["launches"],
-             **cli_launches, **mesh_launches}
+             **cli_launches, **mesh_launches, **harness_launches}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
@@ -3128,6 +3395,11 @@ def main() -> int:
         for k, r in REPLAYED.items()}
     sel["path_replays"] = {k: {f: r[f] for f in (
         "select_calls", "select_lanes")} for k, r in REPLAYED.items()}
+    prb["max_abs_err"] = max([prb["max_abs_err"]] + [
+        r["probe_max_abs_err"] for r in REPLAYED.values()])
+    prb["path_replays"] = {k: {f: r[f] for f in (
+        "probe_calls", "probe_candidates")} for k, r in REPLAYED.items()
+        if r["probe_calls"]}
     print(json.dumps({"runtimes": runtimes, "htod_bytes_per_hop": htod,
                       "wideband": {k: wide[k] for k in (
                           "ms", "wall_ms", "peak_mib", "decoded")},
@@ -3138,6 +3410,7 @@ def main() -> int:
                           for k, v in multi.items()}}), flush=True)
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
+    print(json.dumps({"harness": harness}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -425,7 +425,11 @@ def test_guard_walks_the_user_facing_surfaces():
                 "io/wavfile.py", "io/audio.py", "utils/spotlog.py",
                 "utils/profiler.py", "utils/roofline.py",
                 "pipeline/sweep.py", "parallel/__init__.py",
-                "parallel/distributed.py", "parallel/mesh.py"):
+                "parallel/distributed.py", "parallel/mesh.py",
+                *(f"harness/{m}.py" for m in (
+                    "__init__", "common", "scenes", "bench", "matrix",
+                    "sweeps", "osd_sweeps", "multipass", "ring_ingest",
+                    "osd_calibrate"))):
         assert f"uwspr_tpu_torch/{rel}" in PORT_FILES, rel
     assert len(_jax_package_uses(ast.parse(
         "import jax\nimport jax.numpy as jnp\nfrom jax import lax\n"

@@ -451,6 +451,11 @@ with tempfile.TemporaryDirectory() as d:         # a world of one, gloo
     print("mesh", [(w, s.message) for _, w, s in
                    msd.push(np.concatenate([z, pad])) + msd.flush()])
     dist.destroy_process_group()
+from uwspr_tpu_torch.harness import common, scenes, sweeps
+rates = common.load_record(sweeps.REFERENCE)["curves"]["device_serving"]
+print("harness", common.vs_reference({"-29": 0.86}, rates["decode_rate"],
+                                     "device_serving", 50)["pass"],
+      scenes.bench_windows(1)[1])
 leaked = sorted(m for m in sys.modules if m.startswith("jax")
                 or m == "uwspr_tpu" or m.startswith("uwspr_tpu."))
 assert not leaked, leaked
@@ -475,6 +480,7 @@ def test_port_never_imports_jax(tmp_path):
     assert "wideband ['VE3EMB FN25 30']" in proc.stdout
     assert "passes [('VE3EMB FN25 30', 0)]" in proc.stdout
     assert "mesh [(0, 'VE3EMB FN25 30')]" in proc.stdout
+    assert "harness True ['VE3EMB FN25 30']" in proc.stdout
 
 
 def test_entry_points_take_only_port_configs():
