@@ -101,7 +101,7 @@ Phases, each raising on failure (nothing is caught):
    frame in pass 0 and the weak one in pass 1, passes=1 misses the weak
    one; wall ms per window;
    on each of the paths of 11 to 13, every select_best and fano_decode_batch
-   call the device engine made is recorded (KernelCalls) and replayed: the
+   call the device engine made is recorded (kernel_calls) and replayed: the
    selection grid (the wideband (6400, 5, 26, 126) grid among them) through
    select_best_plain, best bitwise and index equal; the Fano lanes (the
    wideband chunk, the deep-SNR timeouts, each pass's W = 1 lanes) through
@@ -199,11 +199,36 @@ Phases, each raising on failure (nothing is caught):
    (e), and of one decode of (a)'s decoder on (a)'s scene in this process,
    is recorded and replayed as in 11 to 13; the host engine's probe_powers
    calls of (e) through probe_powers_plain within phase 5's tolerance.
+18. (run after 17, before the timing of 14) the multi-chip evidence
+   (uwspr_tpu_torch/harness/scaling.py's ``run``, which also writes the
+   records of ``python -m uwspr_tpu_torch.harness.scaling``): (a) the
+   compute controls in this process, ShardedDecoder.decode on a (1,1) mesh
+   over NCCL at PipelineConfig() on scripts/weak_scaling.py's scenes (1
+   and 4 channels, 1 and 4 windows a shard, 128, 256 and 512 channels),
+   every frame decoded, timed by CUDA events and the host clock after one
+   recorded decode of each; (b) one world of 8 gloo ranks sharing this
+   card, under the launcher (this script with the argument scaling-rank):
+   the CollectiveLog of one ShardedDecoder.decode and one
+   ShardedStreamDecoder.step on each of SCALING_r05.json's five meshes
+   equals the hand formula and the record (the same rounds and ppermute
+   bytes, one all_reduce; the step adds exactly one all_gather) on every
+   rank; the pod dry run ((8,1), 32 channels at 4 a shard) decodes its 8
+   frames and the multichip dry run ((2,4)) decodes "VE3EMB FN25 30"
+   across every time-shard boundary. On all four paths (the controls'
+   recorded decodes, the five rows' decodes and steps, the two dry runs)
+   the kernel counts are set to 0 just before each run and read just
+   after, the selection and Fano kernels launch in every run (on every
+   rank), no plain version is called, and every selection and Fano call
+   is replayed against its oracle bit-exact (harness/replay.py). The
+   bounds are priced at the controls' compute (data-sheet interconnect
+   rates, not measured; the NVLink latency a step assumed, its bound also
+   given as a function of it).
 
 Every path is driven with the kernel counts set to 0 just before it and
 read just after. Prints a JSON line of the runtimes', wideband, OSD and
 multipass times, a JSON line of the CLI phase's results, a JSON line of
-the mesh phase's results, a JSON line of the harness phase's results,
+the mesh phase's results, a JSON line of the harness phase's results, a
+JSON line of the scaling phase's results,
 then a JSON line of per-kernel results (launches
 on the main path, on the ring and on every other path, times, bound,
 library call) before the last line, and as the last line
@@ -227,8 +252,6 @@ N_WINDOWS = 128
 N_HOST = 16             # scene windows through the host engine
 SNR_DB = -18.0
 EXPECTED = "VE3EMB FN25 30"
-PROBE_RTOL, PROBE_ATOL = 2e-4, 2e-2
-SYNC_ATOL = 1e-5
 STFT_RTOL = 1e-5        # of each window's peak power
 
 
@@ -242,20 +265,14 @@ def require(cond: bool, what: str) -> None:
 
 
 def reset_all_counters():
-    from uwspr_tpu_torch.fec import fano
-    from uwspr_tpu_torch.ops import probe, select, stft
-    for m in (fano, probe, select, stft):
-        m.reset_counters()
+    from uwspr_tpu_torch.harness.replay import reset_counters
+    reset_counters()
 
 
 def read_counters():
     """(kernel launches, plain calls) of every kernel, by name."""
-    from uwspr_tpu_torch.fec import fano
-    from uwspr_tpu_torch.ops import probe, select, stft
-    mods = {"select_best": select, "fano_decode": fano,
-            "probe_powers": probe, "stft_power": stft}
-    return ({k: m.KERNEL_LAUNCHES for k, m in mods.items()},
-            {k: m.PLAIN_CALLS for k, m in mods.items()})
+    from uwspr_tpu_torch.harness.replay import counters
+    return counters()
 
 
 # ---------------------------------------------------------------- phase 1
@@ -545,14 +562,9 @@ def native_decode(symbols, maxcycles):
 def fano_equal(a: dict, b: dict, what: str) -> float:
     """Require every result field equal; return the largest absolute
     difference over the integer fields (0 when bit-exact)."""
-    err = 0.0
-    for key in ("success", "data", "metric", "cycles", "maxnp"):
-        x = np.asarray(a[key].cpu() if hasattr(a[key], "cpu") else a[key])
-        y = np.asarray(b[key].cpu() if hasattr(b[key], "cpu") else b[key])
-        require(x.shape == y.shape, f"fano {what}: {key} shape differs")
-        err = max(err, float(np.abs(x.astype(np.int64)
-                                    - y.astype(np.int64)).max(initial=0)))
-        require(np.array_equal(x, y), f"fano {what}: {key} differs")
+    from uwspr_tpu_torch.harness.replay import fano_difference
+    err, bad = fano_difference(a, b)
+    require(not bad, f"fano {what}: {'; '.join(bad)}")
     return err
 
 
@@ -656,27 +668,20 @@ def probe_cases(hdec, ri):
 
 def probe_error(pk, pp, what: str) -> float:
     """Require |pk - pp| <= PROBE_ATOL + PROBE_RTOL * |pp| and the derived
-    sync to SYNC_ATOL; return max |pk - pp|."""
-    import torch
-
-    from uwspr_tpu_torch.demod.finesync import probe_constants, sync_of_powers
-    require(pk.shape == pp.shape, f"probe {what}: shape {tuple(pk.shape)}")
-    require(bool(torch.isfinite(pk).all()), f"probe {what}: non-finite")
-    d = (pk - pp).abs()
-    bad = d > PROBE_ATOL + PROBE_RTOL * pp.abs()
-    require(not bool(bad.any()), f"probe {what}: {int(bad.sum())} powers "
-            f"off, max |diff| {float(d.max()):.3g}")
-    sign = probe_constants(pk.device)["sign"]
-    ds = float((sync_of_powers(pk, sign) - sync_of_powers(pp, sign)).abs()
-               .max())
-    require(ds <= SYNC_ATOL, f"probe {what}: sync differs by {ds:.3g}")
-    return float(d.max())
+    sync within SYNC_ATOL (uwspr_tpu_torch/harness/replay.py); return
+    max |pk - pp|."""
+    from uwspr_tpu_torch.harness.replay import probe_difference
+    err, bad = probe_difference(pk, pp)
+    require(not bad, f"probe {what}: {'; '.join(bad)}")
+    return err
 
 
 def phase_probe(hdec, ri):
     import torch
 
     from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.harness.replay import (PROBE_ATOL, PROBE_RTOL,
+                                                SYNC_ATOL)
     from uwspr_tpu_torch.ops import probe
     cases = probe_cases(hdec, ri)
     z_ri = torch.from_numpy(np.ascontiguousarray(ri[0])).cuda()
@@ -1540,132 +1545,34 @@ def decode_timed(dec, ri_c, reps=1):
             (time.perf_counter() - t0) * 1e3 / W)
 
 
-class KernelCalls:
-    """While active, keeps a host copy of the inputs and outputs of every
-    select_best and fano_decode_batch call that the device engine makes
-    (pipeline/device_decoder.py binds both names), and of every select_best
-    and probe_powers call of the host engine (coarse/search.py and
-    demod/finesync.py bind them), so that replay() can hold each call
-    against its plain oracle afterwards. Host copies leave the card's peak
-    memory as the path alone has it."""
+def kernel_calls():
+    """A recorder of every selection and Fano call of the device engine and
+    every selection and probe call of the host engine, for a replay
+    against their oracles (uwspr_tpu_torch/harness/replay.py)."""
+    from uwspr_tpu_torch.harness.replay import KernelReplay
+    return KernelReplay()
 
-    def __enter__(self):
-        import torch
 
-        from uwspr_tpu_torch.coarse import search
-        from uwspr_tpu_torch.demod import finesync
-        from uwspr_tpu_torch.pipeline import device_decoder as ddm
-        self.ddm, self.search, self.finesync = ddm, search, finesync
-        self.orig = (ddm.select_best, ddm.fano_decode_batch,
-                     search.select_best, finesync.probe_powers)
-        self.select, self.fano, self.probe = [], [], []
-        select_k, fano_k, host_select_k, probe_k = self.orig
-        require(select_k is host_select_k, "the engines bind different "
-                "select_best functions")
-
-        def select(grid, is_nl, *, threshold):
-            best, idx = select_k(grid, is_nl, threshold=threshold)
-            self.select.append((grid.cpu(), is_nl.cpu(), threshold,
-                                best.cpu(), idx.cpu()))
-            return best, idx
-
-        def fano(symbols, mettab, active=None, *, delta=60, maxcycles=10000):
-            out = fano_k(symbols, mettab, active, delta=delta,
-                         maxcycles=maxcycles)
-            self.fano.append((symbols.to(torch.uint8).cpu(), mettab.cpu(),
-                              None if active is None else
-                              (active != 0).cpu(), delta, maxcycles,
-                              {k: v.cpu() for k, v in out.items()}))
-            return out
-
-        def probe(z_ri, lags, freqs, drift_sym, *, n_lags):
-            p = probe_k(z_ri, lags, freqs, drift_sym, n_lags=n_lags)
-            self.probe.append((z_ri.cpu(), lags.cpu(), freqs.cpu(),
-                               drift_sym.cpu(), n_lags, p.cpu()))
-            return p
-        ddm.select_best, ddm.fano_decode_batch = select, fano
-        search.select_best, finesync.probe_powers = select, probe
-        return self
-
-    def __exit__(self, *exc):
-        (self.ddm.select_best, self.ddm.fano_decode_batch,
-         self.search.select_best, self.finesync.probe_powers) = self.orig
-
-    def replay(self, what):
-        """Every recorded selection call through select_best_plain on the
-        card (best bitwise, index equal); every Fano call's active lanes
-        through the native C++ decoder at the call's mettab, delta and
-        budget (success, data, metric, cycles, maxnp equal), its inactive
-        lanes to the kernel's contract; every probe_powers call through
-        probe_powers_plain on the card (probe_error's tolerance). Records the
-        calls and lanes replayed, the largest Fano field difference (0 when
-        bit-exact) and the largest probe power difference in REPLAYED."""
-        import torch
-
-        from uwspr_tpu_torch.device import exact_f32
-        from uwspr_tpu_torch.fec.host import fano_decode_batch_host
-        from uwspr_tpu_torch.ops import probe as prb
-        from uwspr_tpu_torch.ops import select as sel
-        t0 = time.perf_counter()
-        n_sel = 0
-        for grid, is_nl, thr, best, idx in self.select:
-            bp, ip = sel.select_best_plain(grid.cuda(), is_nl.cuda(),
-                                           threshold=thr)
-            require(torch.equal(best.view(torch.int32),
-                                bp.cpu().view(torch.int32))
-                    and torch.equal(idx, ip.cpu()),
-                    f"{what}: select_best differs from its plain version on "
-                    f"the path's grid {tuple(grid.shape)}")
-            n_sel += grid.shape[0]
-        err, n_act, n_timeout = 0.0, 0, 0
-        for sym, met, act, delta, mc, out in self.fano:
-            a = (np.ones(sym.shape[0], bool) if act is None
-                 else act.numpy())
-            ref = fano_decode_batch_host(sym.numpy(), a, backend="native",
-                                         device="cpu", mettab=met.numpy(),
-                                         delta=delta, maxcycles=mc)
-            k = {f: out[f].numpy() for f in ("success", "data", "metric",
-                                              "cycles", "maxnp")}
-            err = max(err, fano_equal({f: v[a] for f, v in k.items()},
-                                      {f: np.asarray(v)[a] for f, v in zip(
-                                          k, ref)},
-                                      f"{what}: path lanes vs native "
-                                      f"maxcycles={mc}"))
-            i = ~a
-            require(not k["success"][i].any() and (k["data"][i] == 0).all()
-                    and (k["metric"][i] == 0).all()
-                    and (k["cycles"][i] == 1).all()
-                    and (k["maxnp"][i] == 0).all(),
-                    f"{what}: inactive Fano lanes break the contract")
-            n_act += int(a.sum())
-            n_timeout += int((k["cycles"][a] >= mc * 81).sum())
-        perr, n_cand = 0.0, 0
-        for z_ri, lags, freqs, dsym, n_lags, pk in self.probe:
-            with torch.no_grad(), exact_f32():
-                pp = prb.probe_powers_plain(z_ri.cuda(), lags.cuda(),
-                                            freqs.cuda(), dsym.cuda(),
-                                            n_lags=n_lags)
-            perr = max(perr, probe_error(pk.cuda(), pp, f"{what}: the "
-                                         f"path's call {tuple(pk.shape)}"))
-            n_cand += freqs.shape[0]
-        log(f"[{what}] the path's own kernel inputs replayed: "
-            f"{len(self.select)} select_best calls ({n_sel} lanes) == "
-            f"select_best_plain (best bitwise, idx equal); "
-            f"{len(self.fano)} fano_decode calls ({n_act} active lanes, "
-            f"{n_timeout} full-budget timeouts) == native fano_native.cc "
-            f"(bit-exact), inactive lanes to contract; "
-            f"{len(self.probe)} probe_powers calls ({n_cand} candidates) == "
-            f"probe_powers_plain within rtol {PROBE_RTOL} atol {PROBE_ATOL} "
-            f"(max |diff| {perr:.3g}); {time.perf_counter() - t0:.2f} s")
-        REPLAYED[what] = {"select_calls": len(self.select),
-                          "select_lanes": n_sel,
-                          "fano_calls": len(self.fano),
-                          "fano_active_lanes": n_act,
-                          "fano_timeouts": n_timeout,
-                          "fano_max_abs_err": err,
-                          "probe_calls": len(self.probe),
-                          "probe_candidates": n_cand,
-                          "probe_max_abs_err": perr}
+def replay_path(calls, what):
+    """Every call that ``calls`` recorded held to its oracle
+    (KernelReplay.replay: selection bitwise, Fano bit-exact with the
+    inactive lanes to the kernel's contract, probe within PROBE_RTOL and
+    PROBE_ATOL); fails on any difference; the calls and lanes replayed go
+    to REPLAYED."""
+    t0 = time.perf_counter()
+    r = calls.replay()
+    require(r["ok"], f"{what}: the path's kernel calls differ from their "
+            f"oracles: {r['failures'][:5]}")
+    log(f"[{what}] the path's own kernel inputs replayed: "
+        f"{r['select_calls']} select_best calls ({r['select_lanes']} lanes) "
+        f"== select_best_plain (best bitwise, idx equal); "
+        f"{r['fano_calls']} fano_decode calls ({r['fano_active_lanes']} "
+        f"active lanes, {r['fano_timeouts']} full-budget timeouts) == "
+        f"native fano_native.cc (bit-exact), inactive lanes to contract; "
+        f"{r['probe_calls']} probe_powers calls ({r['probe_candidates']} "
+        f"candidates) == probe_powers_plain within tolerance (max |diff| "
+        f"{r['probe_max_abs_err']:.3g}); {time.perf_counter() - t0:.2f} s")
+    REPLAYED[what] = r
 
 
 REPLAYED = {}           # path -> the kernel calls its replay held to oracles
@@ -1675,10 +1582,10 @@ def path_run(dec, ri_c, kernels, what):
     """One decode of the path with every count set to 0 just before it and
     read just after: the path's kernels launched, no plain version called;
     then every selection and Fano call of that decode replayed against its
-    oracle (KernelCalls.replay). Returns (packed output, launches, the
+    oracle (replay_path). Returns (packed output, launches, the
     recorded calls)."""
     import torch
-    with KernelCalls() as calls:
+    with kernel_calls() as calls:
         reset_all_counters()
         out = dec.decode_windows_ri(ri_c)
         torch.cuda.synchronize()
@@ -1689,7 +1596,7 @@ def path_run(dec, ri_c, kernels, what):
             f"{what}: a kernel of the path was not launched: {launches}")
     require(all(v == 0 for v in plain.values()),
             f"{what}: a plain version ran on the path: {plain}")
-    calls.replay(what)
+    replay_path(calls, what)
     return out, launches, calls
 
 
@@ -1751,7 +1658,7 @@ def phase_wideband(card):
         f"at ({WB_WINDOWS}, 348, 512)")
 
     z_all = torch.complex(ri_c[:, 0], ri_c[:, 1])
-    (grid, is_nl, _, _, _), = calls.select      # the path's own grid
+    (grid, is_nl, *_), = calls.select       # the path's own grid
     grid, is_nl = grid.cuda(), is_nl.cuda()
 
     hdec = WindowDecoder(PipelineConfig(coarse=coarse), device="cuda")
@@ -1957,7 +1864,7 @@ def phase_multipass(card):
     for engine, kernels in (("device", ("select_best", "fano_decode")),
                             ("hybrid", ("select_best",))):
         res, ms, counts = {}, {}, {}
-        calls = KernelCalls()
+        calls = kernel_calls()
         for i, passes in enumerate((1, 2, 2, 1)):   # the first two: warm-up
             sd = StreamDecoder(PipelineConfig(), engine=engine,
                                passes=passes, device="cuda")
@@ -1971,7 +1878,7 @@ def phase_multipass(card):
                 ms[passes] = (time.perf_counter() - t0) * 1e3
                 res[passes] = r
                 counts[passes] = read_counters()
-        calls.replay(f"multipass {engine}")
+        replay_path(calls, f"multipass {engine}")
         launches, plain = counts[2]
         require(all(launches[k] > 0 for k in kernels)
                 and all(v == 0 for v in plain.values()),
@@ -2014,7 +1921,7 @@ def run_cli(argv):
 def cli_path(argv, kernels, what, calls=None):
     """One CLI command with every count set to 0 just before it and read
     just after: the named kernels launched, no plain version called;
-    ``calls`` (a KernelCalls) records the device engine's kernel calls.
+    ``calls`` (a kernel_calls()) records the device engine's kernel calls.
     Returns (stdout, stderr, launches, wall seconds)."""
     import torch
     with calls if calls is not None else contextlib.nullcontext():
@@ -2065,7 +1972,7 @@ def cli_decodes(tmp):
     run_cli(["encode", *EXPECTED.split(), "--freq-offset", CLI_FREQ,
              "-o", c2])
     run_cli(["c2towav", c2, "-o", wav])
-    calls = KernelCalls()
+    calls = kernel_calls()
     runs = {}
     for name, extra, kernels in (
             ("device", [], ("select_best", "fano_decode")),
@@ -2081,7 +1988,7 @@ def cli_decodes(tmp):
         runs[name] = {"wall_s": wall,
                       "summary": err.strip().splitlines()[-1]}
         runs[name + "_launches"] = launches
-    calls.replay("cli decode")
+    replay_path(calls, "cli decode")
     return c2, wav, runs
 
 
@@ -2454,7 +2361,7 @@ def mesh_world_of_one(card, z, starts, single):
             dec = ShardedStreamDecoder(base_config(), mesh,
                                        n_channels=RING_CH,
                                        wins_per_shard=wins)
-            with KernelCalls() as calls:
+            with kernel_calls() as calls:
                 reset_all_counters()
                 found, lines = mesh_feed(dec, z)
                 torch.cuda.synchronize()
@@ -2468,7 +2375,7 @@ def mesh_world_of_one(card, z, starts, single):
             require(dec.stats.windows == RING_CH * n_win,
                     f"mesh 1x1: {dec.stats.windows} channel-windows")
             cut = check_mesh_spots(found, starts, single, "mesh 1x1")
-            calls.replay("mesh 1x1")
+            replay_path(calls, "mesh 1x1")
             log(f"[mesh] 1x1: {len(lines)} spots in {dec.stats.windows} "
                 f"channel-windows ({dec.stats.steps} steps), equal to "
                 f"BatchedStreamDecoder's and StreamDecoder's on every window "
@@ -2666,14 +2573,14 @@ def mesh_rank(out_dir):
             (pathlib.Path(out_dir) / "timed").touch()
         lap("timing")
         dec = stream_decoder()
-        with KernelCalls() as calls:
+        with kernel_calls() as calls:
             reset_all_counters()
             _, res["lines"] = mesh_feed(dec, z)
             torch.cuda.synchronize()
             res["launches"], res["plain"] = read_counters()
         res["windows"], res["steps"] = dec.stats.windows, dec.stats.steps
         lap("device")
-        calls.replay(what)
+        replay_path(calls, what)
         res["replay"] = REPLAYED[what]
         lap("replay")
         packed, _ = dec.dec.decode(x0, tail0)
@@ -2820,10 +2727,10 @@ def harness_path(kernels, what, fn):
     """fn() with every kernel count set to 0 just before it and read just
     after: the path's kernels launched, no plain version called; then every
     kernel call of the run replayed against its plain version on the same
-    inputs (KernelCalls.replay). Returns (fn's result, launches, seconds,
+    inputs (replay_path). Returns (fn's result, launches, seconds,
     the time taken by the recording's host copies included)."""
     import torch
-    with KernelCalls() as calls:
+    with kernel_calls() as calls:
         reset_all_counters()
         t0 = time.perf_counter()
         out = fn()
@@ -2837,7 +2744,7 @@ def harness_path(kernels, what, fn):
             f"{launches}")
     require(all(v == 0 for v in plain.values()),
             f"harness {what}: a plain version ran on the path: {plain}")
-    calls.replay(f"harness {what}")
+    replay_path(calls, f"harness {what}")
     return out, launches, seconds
 
 
@@ -3018,6 +2925,126 @@ def phase_harness(card):
              "harness_osd_device": osd_launches,
              "harness_noise_only": noise_launches,
              "harness_multipass": multi_launches})
+
+
+# ---------------------------------------------------------------- phase 18
+
+def scaling_rank(out_dir):
+    """One rank of phase 18's world, under the launcher."""
+    sys.path.insert(0, str(ROOT))
+    from uwspr_tpu_torch.harness import scaling
+    return scaling.rank_main(out_dir, "cuda")
+
+
+def scaling_paths(records):
+    """Phase 18's four kernel paths: {path: its recorded runs combined
+    (launches and plain calls summed, replays merged)}. The controls'
+    recorded decodes; the inventory rows' decodes and steps on every
+    rank; each dry run on every rank."""
+    sc = records["scaling"]
+    return {"scaling_controls": sc["controls"],
+            "scaling_inventory": sc["kernels"]["inventory"],
+            "scaling_pod": records["dryrun_pod"]["kernels"],
+            "scaling_multichip": records["multichip"]["kernels"]}
+
+
+def phase_scaling(card):
+    """The multi-chip evidence (see the module doc, phase 18). Returns
+    (results, {path: launches})."""
+    import tempfile
+
+    import torch
+
+    from uwspr_tpu_torch.harness import common, scaling
+    t0 = time.perf_counter()
+    records = scaling.run(torch.device("cuda"),
+                          [str(ROOT / "chip_smoke.py"), "scaling-rank"])
+    seconds = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        failed = [name for name, rec in records.items()
+                  if common.finish(rec, tmp, name)]
+    sc, pod, multi = (records[k] for k in ("scaling", "dryrun_pod",
+                                           "multichip"))
+    require(not failed and all(r["card"] == card
+                               for r in records.values()),
+            f"scaling: records {failed} failed their checks (see above)")
+    for c in sc["controls"]["rows"]:
+        log(f"[scaling] {card}: control {c['scene']} x{c['channels']} "
+            f"wins {c['wins_per_shard']}: {c['spots']}/"
+            f"{c['frames_embedded']} spots, a step {c['step_s'] * 1e3:.3f} "
+            f"ms wall, {c['step_event_s'] * 1e3:.3f} ms events, "
+            f"{c['ms_per_window']:.4f} ms/window, peak {c['peak_mib']:.0f} "
+            f"MiB")
+    log(f"[scaling] headline compute point {sc['headline']}")
+    key80 = f"latency_step_s_for_bound_{scaling.TARGET_EFFICIENCY:g}"
+    for r in sc["rows"]:
+        d, b = r["decode"], r["bound"]
+        log(f"[scaling] {r['config']}: {d['collective_rounds']} rounds, "
+            f"ppermute {d['ppermute_bytes_per_device_per_step']} B, "
+            f"all_reduce {d['allreduce_bytes_per_device_per_step']} B; the "
+            f"step adds an all_gather of "
+            f"{r['step']['allgather_bytes_per_device_per_step']} B at the "
+            f"toy config, "
+            f"{r['step_served']['allgather_bytes_per_device_per_step']} B "
+            f"at PipelineConfig() (the step's bound); bound (decode, step) "
+            f"NVLink "
+            f"{b['decode']['intra_node_nvlink4']['efficiency_bound']:.4f}, "
+            f"{b['step']['intra_node_nvlink4']['efficiency_bound']:.4f}; "
+            f"NDR {b['decode']['inter_node_ndr400']['efficiency_bound']:.4f}"
+            f", {b['step']['inter_node_ndr400']['efficiency_bound']:.4f}; "
+            f"NVLink decode at 0.8 for a step of "
+            f"{r['nvlink_latency_curve']['decode'][key80] * 1e6:.1f} us")
+    for r in sc["pod_4096ch"]["rows"]:
+        log(f"[scaling] pod_4096ch {r['hosts']}x{r['chips_per_host']}: "
+            f"{r['channels_per_chip']} channels a chip, bound (NDR) "
+            f"{r['bound_inter_node_ndr400']['efficiency_bound']:.4f}, "
+            f"real-time headroom {r['realtime_headroom']:.1f}")
+    log(f"[scaling] dry runs ({scaling.NOTE_SHARED}): pod {pod['spots']}/"
+        f"{pod['frames_embedded']} frames, steps "
+        f"{[round(s, 3) for s in pod['step_seconds_by_rank']]} s; "
+        f"multichip {multi['messages']} in {multi['windows']} windows, "
+        f"steps {[round(s, 3) for s in multi['step_seconds_by_rank']]} s")
+    paths = scaling_paths(records)
+    for path, k in paths.items():
+        launches, rep = k["launches"], k["replay"]
+        require(launches["select_best"] > 0 and launches["fano_decode"] > 0
+                and not any(k["plain"].values()) and rep["ok"],
+                f"{path}: launches {launches}, plain {k['plain']}, replay "
+                f"failures {rep['failures'][:5]}")
+        REPLAYED[path.replace("_", " ", 1)] = rep
+        log(f"[scaling] {path}: launches {launches}; replayed "
+            f"{rep['select_calls']} select_best calls "
+            f"({rep['select_lanes']} lanes) bitwise, {rep['fano_calls']} "
+            f"fano_decode calls ({rep['fano_active_lanes']} active lanes, "
+            f"{rep['fano_timeouts']} full-budget timeouts) bit-exact")
+    log(f"[scaling] phase 18 in {seconds:.1f} s")
+    results = {
+        "seconds": seconds, "headline": sc["headline"],
+        "controls": [{k: c[k] for k in (
+            "scene", "channels", "wins_per_shard", "spots", "step_s",
+            "step_event_s", "ms_per_window", "peak_mib")}
+            for c in sc["controls"]["rows"]],
+        "rows": [{"config": r["config"],
+                  "collective_rounds": r["decode"]["collective_rounds"],
+                  "ppermute_bytes": r["decode"][
+                      "ppermute_bytes_per_device_per_step"],
+                  "allgather_bytes": r["step_served"][
+                      "allgather_bytes_per_device_per_step"],
+                  "nvlink_latency_step_s_for_decode_0.8": r[
+                      "nvlink_latency_curve"]["decode"][key80],
+                  "bound": {k: {rate: v["efficiency_bound"]
+                                for rate, v in r["bound"][k].items()}
+                            for k in ("decode", "step")}}
+                 for r in sc["rows"]],
+        "pod_4096ch": [{"chips": r["chips"],
+                        "bound_ndr": r["bound_inter_node_ndr400"][
+                            "efficiency_bound"]}
+                       for r in sc["pod_4096ch"]["rows"]],
+        "dryrun_pod": {"spots": pod["spots"],
+                       "step_s": pod["step_seconds_by_rank"]},
+        "multichip": {"messages": multi["messages"],
+                      "step_s": multi["step_seconds_by_rank"]}}
+    return results, {path: k["launches"] for path, k in paths.items()}
 
 
 # ---------------------------------------------------------------- phase 14
@@ -3354,6 +3381,7 @@ def main() -> int:
     cli, cli_launches = phase_cli(card)
     mesh, mesh_launches = phase_mesh(card, single)
     harness, harness_launches = phase_harness(card)
+    scale, scaling_launches = phase_scaling(card)
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
@@ -3379,7 +3407,8 @@ def main() -> int:
              "osd": osd["launches"],
              "multipass_device": multi["device"]["launches"],
              "multipass_hybrid": multi["hybrid"]["launches"],
-             **cli_launches, **mesh_launches, **harness_launches}
+             **cli_launches, **mesh_launches, **harness_launches,
+             **scaling_launches}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
@@ -3411,6 +3440,7 @@ def main() -> int:
     print(json.dumps({"cli": cli}), flush=True)
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"harness": harness}), flush=True)
+    print(json.dumps({"scaling": scale}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3423,4 +3453,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank(sys.argv[2]))
     if sys.argv[1:] == ["mesh-refusal"]:      # a rank of phase 16 (d)
         sys.exit(mesh_refusal())
+    if sys.argv[1:2] == ["scaling-rank"]:     # a rank of phase 18 (b)
+        sys.exit(scaling_rank(sys.argv[2]))
     sys.exit(main())

@@ -429,7 +429,7 @@ def test_guard_walks_the_user_facing_surfaces():
                 *(f"harness/{m}.py" for m in (
                     "__init__", "common", "scenes", "bench", "matrix",
                     "sweeps", "osd_sweeps", "multipass", "ring_ingest",
-                    "osd_calibrate"))):
+                    "osd_calibrate", "scaling", "replay"))):
         assert f"uwspr_tpu_torch/{rel}" in PORT_FILES, rel
     assert len(_jax_package_uses(ast.parse(
         "import jax\nimport jax.numpy as jnp\nfrom jax import lax\n"

@@ -33,12 +33,6 @@ grid of conftest.py). This spawner is the port's counterpart of JAX's
   NCCL asked for two ranks on one card raises the port's own error.
 """
 
-import json
-import os
-import pathlib
-import subprocess
-import sys
-
 import jax
 import numpy as np
 import pytest
@@ -57,54 +51,12 @@ from uwspr_tpu_torch.pipeline.device_decoder import (DeviceDecoder,
                                                      DeviceDecoderOutput)
 from uwspr_tpu_torch.pipeline.stream import StreamDecoder
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
-WORKER = pathlib.Path(world_mod.__file__)
-WORLD_TIMEOUT_S = 240
-
-
-class World:
-    """The four worker processes of the module's gloo world."""
-
-    def __init__(self, out: pathlib.Path):
-        self.out = out
-        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
-        self.procs = [subprocess.Popen(
-            [sys.executable, str(WORKER), str(r), str(world_mod.WORLD),
-             str(out / "store"), str(out)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, env=env)
-            for r in range(world_mod.WORLD)]
-        self._ranks = None
-
-    def ranks(self):
-        """[(results dict, arrays dict)] of every rank, once all exited."""
-        if self._ranks is None:
-            outs = []
-            for p in self.procs:
-                try:
-                    outs.append(p.communicate(timeout=WORLD_TIMEOUT_S)[0])
-                except subprocess.TimeoutExpired:
-                    self.kill()
-                    pytest.fail("the gloo world timed out")
-            for r, (p, out) in enumerate(zip(self.procs, outs)):
-                assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
-            self._ranks = [
-                (json.loads((self.out / f"rank{r}.json").read_text()),
-                 dict(np.load(self.out / f"rank{r}.npz")))
-                for r in range(world_mod.WORLD)]
-        return self._ranks
-
-    def kill(self):
-        for p in self.procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-
 
 @pytest.fixture(scope="module", autouse=True)
 def world(tmp_path_factory):
     """Started before the module's first test, so that the world runs
     while this process compiles the JAX references."""
-    w = World(tmp_path_factory.mktemp("world"))
+    w = world_mod.World(tmp_path_factory.mktemp("world"), "mesh")
     yield w
     w.kill()
 

@@ -1,26 +1,32 @@
-"""One rank of the gloo world that tests/test_torch_mesh.py spawns on the CPU.
+"""One rank of a gloo world that the tests spawn on the CPU.
 
-    python tests/torch_mesh_world.py RANK WORLD_SIZE STORE OUT_DIR
+    python tests/torch_mesh_world.py MODE RANK WORLD_SIZE STORE OUT_DIR
 
 The world has four ranks and meets through a ``file://`` store at STORE
 (a path that does not exist yet), so that parallel test workers never race
-for a TCP port. Each rank runs every check of the port's
-``uwspr_tpu_torch.parallel`` on the CPU and writes what it saw to
-OUT_DIR/rank<RANK>.json and .npz; the test functions assert on those.
+for a TCP port. ``World`` spawns it. Each rank writes what it saw to
+OUT_DIR/<MODE>_rank<RANK>.json (and .npz); the test functions assert on
+those. MODE "mesh" (tests/test_torch_mesh.py) runs every check of the
+port's ``uwspr_tpu_torch.parallel``; MODE "scaling"
+(tests/test_torch_scaling.py) runs ``harness/scaling.py``'s inventory rows
+and dry runs on four-rank meshes.
 
-The scenes and configs live here so that the test module builds its
+The scenes and configs live here so that the test modules build their
 references from the same inputs: ``halo_inputs`` (the halo exchange),
 ``multihost_scene`` (tests/test_multihost.py's frame across both time
 blocks and the tail, at tests/test_device.py::test_sharded_decoder_mesh's
 config) and ``stream_scene`` (tests/test_mesh_stream.py's four-channel
-stream of two (., 4) steps and a tail).
+stream of two (., 4) steps and a tail); the scaling rows, pod and
+multichip meshes below.
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import os
 import pathlib
+import subprocess
 import sys
 
 import numpy as np
@@ -28,12 +34,63 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 4
 TIMEOUT = datetime.timedelta(seconds=120)   # of every collective
+WORLD_TIMEOUT_S = 240                       # of a whole world
 HALO_CASES = [(2, 4, 6, 15), (2, 4, 20, 15), (2, 1, 6, 15), (1, 8, 5, 23)]
 WORLD_HALO_CASES = [(2, 2, 6, 15), (2, 2, 20, 15)]   # halo > and < block
 STREAM_MESHES = [(2, 2, 1), (1, 4, 2)]     # (n_channel, n_time, wins)
 ENGINES = ("device", "hybrid")
 CHUNKS = (10000, 25000, 7000)              # uneven pushes, then the rest
 CHECKPOINT_CUT = 20000                     # mid-first-step
+# harness/scaling.py on four ranks: (n_channel, n_time, wins_per_shard,
+# channels_per_shard) rows at its toy config, the pod program on (4, 1) at
+# 4 channels a shard and the multichip stream on (1, 4)
+SCALING_ROWS = [(4, 1, 1, 2), (1, 4, 1, 1), (2, 2, 2, 1)]
+SCALING_POD = (4, 1, 4)
+SCALING_MULTICHIP = (1, 4)
+
+
+class World:
+    """The WORLD processes of one gloo world running MODE, started at
+    once; ``ranks()`` waits for them (each must exit 0 within
+    WORLD_TIMEOUT_S) and returns what each rank wrote: (results, arrays)
+    where it wrote arrays, else the results."""
+
+    def __init__(self, out: pathlib.Path, mode: str):
+        self.out, self.mode = out, mode
+        env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+        self.procs = [subprocess.Popen(
+            [sys.executable, __file__, mode, str(r), str(WORLD),
+             str(out / "store"), str(out)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)
+            for r in range(WORLD)]
+        self._ranks = None
+
+    def ranks(self):
+        import pytest
+        if self._ranks is None:
+            outs = []
+            for p in self.procs:
+                try:
+                    outs.append(p.communicate(timeout=WORLD_TIMEOUT_S)[0])
+                except subprocess.TimeoutExpired:
+                    self.kill()
+                    pytest.fail(f"the gloo world ({self.mode}) timed out")
+            for r, (p, out) in enumerate(zip(self.procs, outs)):
+                assert p.returncode == 0, f"rank {r} failed:\n{out[-3000:]}"
+            self._ranks = []
+            for r in range(WORLD):
+                res = json.loads((self.out / f"{self.mode}_rank{r}.json")
+                                 .read_text())
+                npz = self.out / f"{self.mode}_rank{r}.npz"
+                self._ranks.append((res, dict(np.load(npz)))
+                                   if npz.exists() else res)
+        return self._ranks
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def halo_inputs(n_ch, n_time, block_len, halo, seed=0):
@@ -190,11 +247,44 @@ def run(rank: int, world: int, store: str, out: pathlib.Path) -> None:
     res["checkpoint"] = {"spots": [(ch, w, s.message) for ch, w, s in got],
                          "windows": dec.stats.windows}
     dist.destroy_process_group()
-    (out / f"rank{rank}.json").write_text(json.dumps(res))
-    np.savez(out / f"rank{rank}.npz", **arrays)
+    (out / f"mesh_rank{rank}.json").write_text(json.dumps(res))
+    np.savez(out / f"mesh_rank{rank}.npz", **arrays)
+
+
+def run_scaling(rank: int, world: int, store: str,
+                out: pathlib.Path) -> None:
+    """harness/scaling.py's rank functions on four ranks: every row of
+    SCALING_ROWS (its decode and step inventories, count and spots), a
+    barrier under the CollectiveLog, the pod and the multichip dry runs."""
+    import torch
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.harness import scaling
+    from uwspr_tpu_torch.parallel.distributed import global_mesh, initialize
+    torch.set_num_threads(2)
+    initialize("gloo", init_method=f"file://{store}", world_size=world,
+               rank=rank, timeout=TIMEOUT)
+    meshes = {}
+    for n_ch, n_time, *_ in (SCALING_ROWS + [SCALING_POD[:2],
+                                             SCALING_MULTICHIP]):
+        if (n_ch, n_time) not in meshes:
+            meshes[n_ch, n_time] = global_mesh(n_ch, n_time, "cpu")
+    res = {"rows": [scaling.row_inventory(meshes[row[:2]], row,
+                                          scaling.multichip_config())
+                    for row in SCALING_ROWS]}
+    orig = dist.barrier
+    with scaling.CollectiveLog(meshes[2, 2]) as log:
+        dist.barrier()
+    res["barrier"] = scaling.inventory(log)
+    res["restored"] = dist.barrier is orig
+    res["pod"] = scaling.dryrun_pod(meshes[SCALING_POD[:2]], SCALING_POD[2])
+    res["multichip"] = scaling.dryrun_multichip(meshes[SCALING_MULTICHIP])
+    dist.destroy_process_group()
+    (out / f"scaling_rank{rank}.json").write_text(json.dumps(res))
 
 
 if __name__ == "__main__":
     sys.path.insert(0, str(ROOT))
-    run(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
-        pathlib.Path(sys.argv[4]))
+    mode, rank, world, store, out = sys.argv[1:]
+    {"mesh": run, "scaling": run_scaling}[mode](
+        int(rank), int(world), store, pathlib.Path(out))

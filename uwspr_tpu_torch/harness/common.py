@@ -66,19 +66,26 @@ def timed_batch(decoder, ri: torch.Tensor, reps: int = 3) -> Batch:
     then time ``reps`` decodes of ``ri``, a batch already on the decoder's
     device, by CUDA events and the host clock, ending on
     ``torch.cuda.synchronize()``."""
-    dev = decoder.device
+    return timed_call(lambda: decoder.decode_windows_ri(ri), decoder.device,
+                      reps)
+
+
+def timed_call(fn, dev: torch.device, reps: int = 3) -> Batch:
+    """``timed_batch``'s discipline for any call whose work runs on
+    ``dev``: once to warm, then ``reps`` calls timed by CUDA events and the
+    host clock, ending on ``torch.cuda.synchronize()``."""
     t0 = time.perf_counter()
-    out = decoder.decode_windows_ri(ri)
+    out = fn()
     sync(dev)
     first = time.perf_counter() - t0
-    log(f"  first decode: {first:.2f} s")
+    log(f"  first call: {first:.2f} s")
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
-        out = decoder.decode_windows_ri(ri)
+        out = fn()
     if dev.type == "cuda":
         end.record()
     sync(dev)
@@ -166,4 +173,4 @@ def finish(record: dict, out_dir: str, name: str) -> int:
 __all__ = ["Batch", "CURVE_TOL", "POINT_TOL", "RESULTS", "ROOT",
            "card_identity", "finish", "load_record", "log",
            "parser", "point", "record_head", "sync", "timed_batch",
-           "vs_reference"]
+           "timed_call", "vs_reference"]
