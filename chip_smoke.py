@@ -104,7 +104,7 @@ Phases, each raising on failure (nothing is caught):
    call the device engine made is recorded (kernel_calls) and replayed: the
    selection grid (the wideband (6400, 5, 26, 126) grid among them) through
    select_best_plain, best bitwise and index equal; the Fano lanes (the
-   wideband chunk, the deep-SNR timeouts, each pass's W = 1 lanes) through
+   wideband phases, the deep-SNR timeouts, each pass's W = 1 lanes) through
    the native C++ decoder at the call's budget, bit-exact, inactive lanes to
    the kernel's contract;
 14. timing: each kernel, its plain version and, where one exists, the one
@@ -117,7 +117,11 @@ Phases, each raising on failure (nothing is caught):
    the least time the card could take: the larger of its bytes over the
    HBM rate and its operations over their peak rate (H100 SXM data sheet,
    700 W), and for Fano the longest lane's forward looks times one
-   shared-memory round trip. Selection is also timed at the host engine's
+   shared-memory round trip. Fano is timed at the slice's two calls (phase
+   1: the jiggle-0 lane of every candidate, active the gate; phase 2: the
+   other jiggles, active where the gate is and phase 1 failed; that call's
+   bound also counts its bytes). Selection is also timed at the host
+   engine's
    (200, 5, 26, 126) grid of the scene's first window, and Fano at
    maxcycles 10,000 on a block of 128 lanes of uniform noise that all run
    the full budget and on a mixed chunk of 192 clean lanes and 64 such
@@ -223,13 +227,36 @@ Phases, each raising on failure (nothing is caught):
    bounds are priced at the controls' compute (data-sheet interconnect
    rates, not measured; the NVLink latency a step assumed, its bound also
    given as a function of it).
+19. (run after 18, before the timing of 14) the device engine's
+   asynchronous contract: every entry of the serving path returns once its
+   work is queued. (a) Under torch.cuda.set_sync_debug_mode("error"),
+   which raises on any synchronising op, decode_windows_ri from a numpy
+   block and from the resident tensor on bench.py's scene (the serving
+   config, default and stft_impl="pallas": 128/128; PipelineConfig()
+   without compaction, with and without refine_max_lanes: decodes
+   recorded) and on the wideband scene (W = 32: 320/320), and a
+   DeviceRingDecoder on phase 10's stream
+   (push_hop from a numpy block on the first decoding hop, which cuts
+   frames, then from a StagedBlock, then push_hops(2)); every handle
+   bitwise equal to the same call made outside the mode (the ring's spots
+   too), the kernels launched and no plain version called. (b) On the
+   cut-frame hop, an event recorded right after push_hop returns is still
+   pending; the host's return time is printed beside the hop's time by
+   CUDA events. (c) Recorded, not checked: bench.py's pattern (8 batches
+   of W = 128 dispatched, then one synchronize), the host clock at each
+   return, each batch's CUDA-event time, ms/window, and the idle share of
+   a torch.profiler trace over 4 back-to-back batches
+   (scripts/torch_async_readings.py takes the same readings of any
+   checkout). (d) The runs outside the mode are recorded paths: their
+   counts zeroed before and read after, every selection and Fano call
+   (one Fano launch a phase) replayed as in 11 to 13.
 
 Every path is driven with the kernel counts set to 0 just before it and
 read just after. Prints a JSON line of the runtimes', wideband, OSD and
 multipass times, a JSON line of the CLI phase's results, a JSON line of
 the mesh phase's results, a JSON line of the harness phase's results, a
-JSON line of the scaling phase's results,
-then a JSON line of per-kernel results (launches
+JSON line of the scaling phase's results, a JSON line of the async
+phase's results, then a JSON line of per-kernel results (launches
 on the main path, on the ring and on every other path, times, bound,
 library call) before the last line, and as the last line
 {"ok": true, "device": {...}}.
@@ -3047,6 +3074,228 @@ def phase_scaling(card):
     return results, {path: k["launches"] for path, k in paths.items()}
 
 
+# ---------------------------------------------------------------- phase 19
+
+ASYNC_BATCHES = 8       # bench.py's pattern: dispatch them all, then sync
+ASYNC_PROFILED = 4      # back-to-back batches under torch.profiler
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Every synchronising CUDA operation raises while the block runs
+    (torch.cuda's sync debug mode "error": a blocking copy, .item(), a
+    boolean mask index, nonzero, a stream or device synchronize)."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def async_readings(dec, ri_c, batches=ASYNC_BATCHES,
+                   profiled=ASYNC_PROFILED):
+    """bench.py's pattern on ``dec`` (bench.py:139-148): after one warm-up,
+    ``batches`` decodes of the resident windows ``ri_c`` dispatched back to
+    back, then one synchronize: the host clock at each return, each
+    batch's CUDA-event time and ms/window over the whole; then ``profiled``
+    back-to-back decodes under torch.profiler: the card's busy time (its
+    kernels, copies and sets) against the wall time, and the idle share
+    1 - busy / wall. Reads only ``decode_windows_ri``, so it times any
+    checkout's decoder (scripts/torch_async_readings.py)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    W = ri_c.shape[0]
+    dec.decode_windows_ri(ri_c)
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(batches + 1)]
+    stamps = []
+    t0 = time.perf_counter()
+    marks[0].record()
+    for b in range(batches):
+        dec.decode_windows_ri(ri_c)
+        marks[b + 1].record()
+        stamps.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    events = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(profiled):
+            dec.decode_windows_ri(ri_c)
+        torch.cuda.synchronize()
+        pwall = (time.perf_counter() - t1) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    first, batch = stamps[0], sum(events) / batches
+    return {"windows": W, "batches": batches, "host_return_ms": stamps,
+            "batch_ms_events": events, "wall_ms": wall,
+            "ms_per_window": wall / (batches * W),
+            "first_return_ms": first, "mean_batch_ms": batch,
+            "bound_by": "card" if first < batch else "host launches",
+            "profiled_batches": profiled, "profiled_wall_ms": pwall,
+            "busy_ms": busy, "idle_share": 1.0 - busy / pwall}
+
+
+def log_readings(card, what, r):
+    log(f"[async] {card}: {what}: {r['batches']} batches of {r['windows']} "
+        f"dispatched, then one synchronize: host ms at each return "
+        f"{', '.join(f'{x:.3f}' for x in r['host_return_ms'])}; per-batch "
+        f"CUDA events {', '.join(f'{x:.3f}' for x in r['batch_ms_events'])}"
+        f" ms; {r['ms_per_window']:.4f} ms/window; the first return "
+        f"{r['first_return_ms']:.3f} ms against a {r['mean_batch_ms']:.3f} "
+        f"ms batch: bound by the {r['bound_by']}; {r['profiled_batches']} "
+        f"batches under torch.profiler: wall {r['profiled_wall_ms']:.3f} ms,"
+        f" device busy {r['busy_ms']:.3f} ms, idle share "
+        f"{r['idle_share']:.4f}")
+
+
+def phase_async(card, dec, ri, ri_c):
+    """The device engine's asynchronous contract (see the module doc,
+    phase 19). Returns (results, launches by path)."""
+    import torch
+
+    from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig,
+                                        PipelineConfig, with_serving_defaults)
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    from uwspr_tpu_torch.pipeline.device_ring import DeviceRingDecoder
+    t_start = time.perf_counter()
+    paths, res = {}, {}
+
+    def mode_run(what, kernels, run):
+        """run() under sync_errors with the counts set to 0 just before it
+        and read just after: the path's kernels launched, no plain
+        version called."""
+        reset_all_counters()
+        with sync_errors():
+            out = run()
+        torch.cuda.synchronize()
+        launches, plain = read_counters()
+        require(all(launches[k] > 0 for k in kernels)
+                and all(v == 0 for v in plain.values()),
+                f"{what} under sync debug mode: launches {launches}, plain "
+                f"calls {plain}")
+        return out, launches
+
+    # (a), (d): the decoder on bench.py's scene (the serving config, the
+    # pallas STFT, no compaction with and without refine_max_lanes) and
+    # on the wideband scene
+    pdec = DeviceDecoder(with_serving_defaults(PipelineConfig(
+        coarse=CoarseConfig(stft_impl="pallas")), N_WINDOWS), device="cuda")
+    udec = DeviceDecoder(PipelineConfig(), device="cuda")
+    rdec = DeviceDecoder(PipelineConfig(demod=DemodConfig(
+        refine_max_lanes=2 * N_WINDOWS)), device="cuda")
+    wri, wexp = wideband_windows()
+    wdec = DeviceDecoder(with_serving_defaults(PipelineConfig(
+        coarse=CoarseConfig(halfbandwidth=187, maxfreqs=200)), WB_WINDOWS),
+        device="cuda")
+    both = ("select_best", "fano_decode")
+    cases = (("serving", dec, ri, ri_c, both),
+             ("pallas", pdec, ri, ri_c, both + ("stft_power",)),
+             ("uncompacted", udec, ri, ri_c, both),
+             ("refine_max_lanes", rdec, ri, ri_c, both),
+             ("wideband", wdec, wri, torch.from_numpy(wri).cuda(), both))
+    for name, d, host_in, dev_in, kernels in cases:
+        d.decode_windows_ri(dev_in)
+        torch.cuda.synchronize()
+        want, launches, _ = path_run(d, dev_in, kernels, f"async {name}")
+        paths[f"async_{name}"] = launches
+        got, _ = mode_run(name, kernels, lambda: [
+            d.decode_windows_ri(host_in), d.decode_windows_ri(dev_in)])
+        for h, src in zip(got, ("numpy", "device tensor")):
+            require(torch.equal(h, want), f"async {name}: the {src} input "
+                    f"under sync debug mode differs from the decode outside")
+        typed = d.unpack_output(got[0])
+        W = host_in.shape[0]
+        msgs = [set(d.messages(typed.window(w))) for w in range(W)]
+        if name == "wideband":
+            n = sum(len(m & e) for m, e in zip(msgs, wexp))
+            n_exp = sum(len(e) for e in wexp)
+        else:
+            n, n_exp = sum(EXPECTED in m for m in msgs), W
+        # the decode counts of the configs without compaction are
+        # recorded; the others are hard
+        require(n == n_exp or name in ("uncompacted", "refine_max_lanes"),
+                f"async {name}: {n}/{n_exp} decoded")
+        res[name] = f"{n}/{n_exp}"
+        log(f"[async] {name}: decode_windows_ri from a numpy block and from "
+            f"the resident tensor under sync debug mode \"error\": no "
+            f"synchronising op, both bitwise equal to the decode outside "
+            f"the mode, {n}/{n_exp} decoded")
+
+    # (a), (b), (d): the ring on phase 10's stream, from the first decoding
+    # hop, which cuts frames
+    z, starts = make_stream()
+    cut = [c for c in starts
+           if coverage(starts[c], ring_starts()[PREFILL]) == "partial"]
+    require(cut, f"ring hop {PREFILL} cuts no frame")
+    rings = [DeviceRingDecoder(runtime_config(), n_channels=RING_CH,
+                               device="cuda") for _ in range(2)]
+    for r in rings:
+        for k in range(PREFILL):
+            r.push_hop(hop_block(z, k))
+    torch.cuda.synchronize()
+    later = np.stack([hop_block(z, PREFILL + 2 + i) for i in range(2)])
+
+    def ring_run(r, timed=None):
+        h0 = r.push_hop(hop_block(z, PREFILL)) if timed is None \
+            else timed(r)
+        h1 = r.push_hop(r.stage(hop_block(z, PREFILL + 1)))
+        return [h0, h1, r.push_hops(later)]
+    with kernel_calls() as calls:
+        reset_all_counters()
+        want = ring_run(rings[0])
+        torch.cuda.synchronize()
+        launches, plain = read_counters()
+    require(all(launches[k] > 0 for k in both)
+            and all(v == 0 for v in plain.values()),
+            f"async ring: launches {launches}, plain calls {plain}")
+    paths["async_ring"] = launches
+    replay_path(calls, "async ring")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    hop = {}
+
+    def timed(r):
+        ev[0].record()
+        t0 = time.perf_counter()
+        h = r.push_hop(hop_block(z, PREFILL))
+        hop["host_ms"] = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        hop["pending"] = not ev[1].query()
+        return h
+    got, _ = mode_run("ring", both, lambda: ring_run(rings[1], timed))
+    hop["device_ms"] = ev[0].elapsed_time(ev[1])
+    for i, what in enumerate(("push_hop(numpy block)",
+                              "push_hop(StagedBlock)", "push_hops(2)")):
+        require(torch.equal(got[i], want[i]),
+                f"async ring: {what} under sync debug mode differs")
+        require(spot_fields(rings[1], got[i]) == spot_fields(rings[0],
+                                                             want[i]),
+                f"async ring: {what}: other spots")
+    log(f"[async] ring ({RING_CH} channels): push_hop from a numpy block "
+        f"and from a StagedBlock, push_hops(2), under sync debug mode "
+        f"\"error\": no synchronising op, handles and spots equal to the "
+        f"runs outside the mode")
+    require(hop["pending"], f"push_hop returned after the card finished "
+            f"hop {PREFILL} ({hop['host_ms']:.3f} ms on the host)")
+    log(f"[async] {card}: hop {PREFILL} (cuts the frames of {len(cut)} "
+        f"channels): push_hop returned after {hop['host_ms']:.3f} ms on the "
+        f"host with the hop's end event still pending; the hop took "
+        f"{hop['device_ms']:.3f} ms by CUDA events")
+    res["ring_hop"] = {**hop, "cut_channels": len(cut)}
+
+    # (c) bench.py's pattern, recorded
+    res["bench_pattern"] = async_readings(dec, ri_c)
+    log_readings(card, "serving config (bench.py's pattern)",
+                 res["bench_pattern"])
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"[async] phase 19 in {res['seconds']:.1f} s")
+    return res, paths
+
+
 # ---------------------------------------------------------------- phase 14
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet;
@@ -3174,14 +3423,13 @@ def timing_fano(dec, ri_c, card, sm_mhz):
     import torch
 
     from uwspr_tpu_torch.fec import fano
-    # the slice's phase-1 Fano chunk: jiggle-0 lanes, gated first, 256 wide
+    # the slice's phase-1 Fano call: the jiggle-0 lane of every candidate
+    # of every window, active the gate
     with torch.no_grad():
         pre = dec.prefano(ri_c)
-    gate0 = pre["gate"][:, :, 0].reshape(-1)
-    deint0 = pre["deint"][:, :, 0].reshape(-1, 162)
-    FL = min(dec.config.demod.fano_compact_lanes, gate0.shape[0])
-    order = torch.argsort((~gate0).to(torch.int8), stable=True)[:FL]
-    sym, act = deint0[order].contiguous(), gate0[order].contiguous()
+    act = pre["gate"][:, :, 0].reshape(-1).contiguous()
+    sym = pre["deint"][:, :, 0].reshape(-1, 162).contiguous()
+    FL = act.shape[0]
     met = dec.state["mettab"]
     mc = dec.config.demod.maxcycles
     ms, turns, outs = time_turns(
@@ -3191,7 +3439,7 @@ def timing_fano(dec, ri_c, card, sm_mhz):
                                                    maxcycles=mc))],
         {"plain": 2, "kernel": 50})
     err = fano_equal(outs["kernel"], outs["plain"],
-                     f"kernel vs plain on the phase-1 chunk maxcycles={mc}")
+                     f"kernel vs plain on the phase-1 call maxcycles={mc}")
     cyc = outs["kernel"]["cycles"][act].to(torch.int64)
     csum, cmax = int(cyc.sum()), int(cyc.max())
     bms = cmax * FANO_STEP_CLOCKS / (sm_mhz * 1e6) * 1e3
@@ -3199,19 +3447,47 @@ def timing_fano(dec, ri_c, card, sm_mhz):
               [FL, 162], ms["kernel"], ms["plain"],
               (bms, "operations", "latency"), None, None, err)
     e.update(cycles_sum=csum, cycles_max=cmax)
-    log(f"[timing] {card}: fano_decode on the phase-1 chunk ({FL} lanes, "
+    log(f"[timing] {card}: fano_decode on the phase-1 call ({FL} lanes, "
         f"{int(act.sum())} gated, maxcycles={mc}; cycles sum {csum}, max "
         f"{cmax}): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms,"
         f" library none (a sequential search); bound {bms:.4f} ms (the "
         f"longest lane's {cmax} forward looks x {FANO_STEP_CLOCKS} clocks at"
         f" {sm_mhz} MHz), {100 * e['bound_share']:.1f} % of it (turns "
         f"{fmt_turns(turns)}); kernel == plain, bit-exact")
+    # the slice's phase-2 call: the other jiggles of every candidate, active
+    # where the gate is and the jiggle-0 lane failed (bench.py's scene: no
+    # lane, so its blocks read their symbols and exit)
+    gate = pre["gate"]
+    succ0 = outs["kernel"]["success"].reshape(gate.shape[:2])
+    act2 = (gate[:, :, 1:] & ~succ0[:, :, None]).reshape(-1).contiguous()
+    sym2 = pre["deint"][:, :, 1:].reshape(-1, 162).contiguous()
+    ms, turns, outs = time_turns(
+        [("plain", lambda: fano.fano_decode_batch_plain(sym2, met, act2,
+                                                        maxcycles=mc)),
+         ("kernel", lambda: fano.fano_decode_batch(sym2, met, act2,
+                                                   maxcycles=mc))],
+        {"plain": 2, "kernel": 50})
+    err = max(err, fano_equal(outs["kernel"], outs["plain"],
+                              "kernel vs plain on the phase-2 call"))
+    n2, a2 = act2.shape[0], int(act2.sum())
+    cmax2 = int(outs["kernel"]["cycles"][act2].max()) if a2 else 0
+    # each lane's symbols and active flag read, its 23 result bytes written
+    tb = (n2 * (162 + 1 + 23) + met.numel() * 4) / HBM_BYTES_S * 1e3
+    tl = cmax2 * FANO_STEP_CLOCKS / (sm_mhz * 1e6) * 1e3
+    bms, by = (tb, "bytes") if tb >= tl else (tl, "operations")
+    other = {"phase-2 call": {
+        "shape": [n2, 162], "active": a2, "ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "cycles_max": cmax2}}
+    log(f"[timing] {card}: fano_decode on the phase-2 call ({n2} lanes, {a2}"
+        f" gated): kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms;"
+        f" bound {bms:.4f} ms (by {by}), {100 * bms / ms['kernel']:.1f} % of"
+        f" it (turns {fmt_turns(turns)}); kernel == plain, bit-exact")
     # deep-SNR load at the full budget: lanes that never decode
     rng = np.random.default_rng(23)
     blocks = {"all-timeout block": fano_lanes(rng, 128, None),
               "mixed chunk": np.concatenate([fano_lanes(rng, 192, 10.0),
                                              fano_lanes(rng, 64, None)])}
-    other = {}
     for name, lanes in blocks.items():
         sym = torch.from_numpy(lanes).cuda()
         ms, turns, outs = time_turns(
@@ -3382,6 +3658,7 @@ def main() -> int:
     mesh, mesh_launches = phase_mesh(card, single)
     harness, harness_launches = phase_harness(card)
     scale, scaling_launches = phase_scaling(card)
+    asyn, async_launches = phase_async(card, dec, ri, ri_c)
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
@@ -3408,7 +3685,7 @@ def main() -> int:
              "multipass_device": multi["device"]["launches"],
              "multipass_hybrid": multi["hybrid"]["launches"],
              **cli_launches, **mesh_launches, **harness_launches,
-             **scaling_launches}
+             **scaling_launches, **async_launches}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
@@ -3441,6 +3718,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh}), flush=True)
     print(json.dumps({"harness": harness}), flush=True)
     print(json.dumps({"scaling": scale}), flush=True)
+    print(json.dumps({"async": asyn}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,11 @@ Inputs, all made from seeds: bench.py's scene (seed 0, 128 windows of
 (1664, 5, 26, 126) grid of that scene and the host engine's
 (200, 5, 26, 126) grid of its first window, and both shapes all NaN (no
 group can accept, so the extremes pass is timed alone). Fano at
-maxcycles 10,000: the device engine's phase-1 chunk (256 lanes, gated
-first), the same chunk with no lane active (the launch and the prologue
-alone), a block of 128 lanes of uniform noise that all run the full
-budget, and a mixed chunk of 192 clean lanes and 64 such timeouts. The
+maxcycles 10,000: the device engine's phase-1 call (every candidate's
+jiggle-0 lane, active the gate), its phase-2 call (the other jiggles, none
+active on this scene: the launch and the prologue alone), a block of 128
+lanes of uniform noise that all run the full budget, and a mixed chunk of
+192 clean lanes and 64 such timeouts. The
 inputs, the spin-kernel timing and the card line are chip_smoke.py's.
 Prints the card's name and power limit, one line per shape and a JSON
 line of all times; with ``--out`` the JSON is also appended to
@@ -71,20 +72,22 @@ def inputs() -> dict:
     for name, (g, nl, t) in list(sel.items()):
         sel[f"{name}, all NaN (extremes alone)"] = (
             torch.full_like(g, float("nan")), nl, t)
-    gate0 = pre["gate"][:, :, 0].reshape(-1)
-    deint0 = pre["deint"][:, :, 0].reshape(-1, 162)
-    FL = min(dec.config.demod.fano_compact_lanes, gate0.shape[0])
-    order = torch.argsort((~gate0).to(torch.int8), stable=True)[:FL]
+    gate, deint = pre["gate"], pre["deint"]
+    n1 = gate.shape[0] * gate.shape[1]
     rng = np.random.default_rng(23)
     timeouts = chip_smoke.fano_lanes(rng, 128, None)
     mixed = np.concatenate([chip_smoke.fano_lanes(rng, 192, 10.0),
                             chip_smoke.fano_lanes(rng, 64, None)])
+    # phase 2 of this scene has no lane active: every jiggle-0 lane the
+    # gate passes decodes, so the call is the launch and the prologue
     fano = {
-        "phase-1 chunk (256 lanes)": (deint0[order].contiguous(),
-                                      gate0[order].contiguous()),
-        "phase-1 chunk, no lane active (launch and prologue)": (
-            deint0[order].contiguous(),
-            torch.zeros_like(gate0[order]).contiguous()),
+        f"phase-1 call ({n1} lanes)": (
+            deint[:, :, 0].reshape(-1, 162).contiguous(),
+            gate[:, :, 0].reshape(-1).contiguous()),
+        f"phase-2 call ({n1 * (gate.shape[2] - 1)} lanes, none active)": (
+            deint[:, :, 1:].reshape(-1, 162).contiguous(),
+            torch.zeros(n1 * (gate.shape[2] - 1), dtype=torch.bool,
+                        device=gate.device)),
         "all-timeout block (128 lanes)": (torch.from_numpy(timeouts).cuda(),
                                           None),
         "mixed chunk (192 clean + 64 timeouts)": (

@@ -14,8 +14,9 @@ Three kinds of test:
   but for the repaired arecord read) against their originals' ASTs, up to
   docstrings and the package their imports name.
 - separation: a static walk of the AST of every port source file (and of
-  chip_smoke.py and scripts/torch_stages.py) for imports of ``uwspr_tpu``
-  or ``jax`` and paths into ``uwspr_tpu/``.
+  chip_smoke.py and the port's scripts torch_stages.py,
+  torch_async_readings.py and torch_select_fano_tuning.py) for imports of
+  ``uwspr_tpu`` or ``jax`` and paths into ``uwspr_tpu/``.
 
 ``jax_config`` turns a port config into the JAX package's config of the
 same fields; the other ``test_torch_*`` files build their configs with the
@@ -388,7 +389,9 @@ def test_audio_copy_equal_except_the_arecord_read():
 PORT_FILES = sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "uwspr_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "scripts/torch_stages.py"])
+    + ["chip_smoke.py", "scripts/torch_stages.py",
+       "scripts/torch_async_readings.py",
+       "scripts/torch_select_fano_tuning.py"])
 # a "file:line" reference to the TPU kernel a port kernel replaces is text,
 # not a path the program reads
 _CITATION = re.compile(r"^uwspr_tpu/[\w/]+\.py:\d+$")

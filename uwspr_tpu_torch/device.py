@@ -20,6 +20,22 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A numpy array or tensor on ``device`` without a host wait.
+
+    A tensor already on ``device`` is returned as it is. A host array bound
+    for a CUDA device is copied into pinned memory and sent with
+    ``non_blocking=True`` on the current stream: a copy from pageable
+    memory would wait for all work already queued there. The pinned block
+    comes from PyTorch's caching host allocator, which records the copy's
+    event and does not hand the block out again until that event has
+    completed, so the caller may drop it and reuse its own array at once."""
+    t = torch.as_tensor(x)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 @contextlib.contextmanager
 def exact_f32():
     """Full float32 products on the card: no TF32 in cuBLAS or cuDNN.
@@ -38,4 +54,4 @@ def exact_f32():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-__all__ = ["exact_f32", "resolve_device"]
+__all__ = ["exact_f32", "resolve_device", "to_device"]

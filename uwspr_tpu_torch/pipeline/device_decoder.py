@@ -16,14 +16,14 @@ The lanes the refinement runs on: with cand_compact_lanes > 0 the valid
 candidates gathered across the batch (_compact_cand_pre); otherwise all
 W*C lanes, and with refine_max_lanes > 0 the post-worth tail on the worth
 lanes gathered across the batch (_compact_refine_tail). The Fano: with
-fano_compact_lanes > 0 never-drop chunks of gated lanes across the batch
-(_compact_fano); otherwise at most fano_max_lanes gated lanes per window
-and phase, the rest counted in fano_overflow. The OSD lanes: the failed lanes
-of the whole batch, compacted to osd_max_lanes (the rest counted in
-fano_overflow). fano_mode "host" (the hybrid engine) stops after the gates
-and packs the soft symbols (_pack_prefano); ``host_fano_assemble`` runs
-the Fano on the host through ``fec.host`` with ``config.fano_backend``,
-and host OSD when osd_depth > 0.
+fano_compact_lanes > 0 every gated lane of the batch, never dropped, in one
+call per phase (_compact_fano); otherwise at most fano_max_lanes gated
+lanes per window and phase, the rest counted in fano_overflow. The OSD
+lanes: the failed lanes of the whole batch, compacted to osd_max_lanes
+(the rest counted in fano_overflow). fano_mode "host" (the hybrid engine)
+stops after the gates and packs the soft symbols (_pack_prefano);
+``host_fano_assemble`` runs the Fano on the host through ``fec.host``
+with ``config.fano_backend``, and host OSD when osd_depth > 0.
 
 ``__call__`` decodes one window with the reference's per-window program
 (jit_decoder.py:594-696, :1214-1220): the batch path at W = 1 with the
@@ -33,11 +33,14 @@ at most fano_max_lanes gated lanes and OSD is compacted over the window's
 C lanes.
 
 PyTorch runs eagerly, so the JAX decoder's vmap over windows is a batch
-dimension written out and its bounded while loops are host loops; the
-device-to-host reads are the gated-lane count of each compacted Fano phase,
-which sizes the chunk loop (and skips the Fano when nothing is gated), and
-with OSD on the failed-lane count, which sizes the OSD batch (and skips it
-when no lane failed).
+dimension written out. As the JAX decoder's dispatch does, the device
+engine queues a batch's work and returns without waiting for the card: no
+Python value depends on a tensor's contents, every shape is fixed by the
+config and the batch, and a host input goes out from pinned memory without
+blocking. ``fetch`` (``unpack_output``, the hybrid engine's host Fano) is
+where the host waits. The one wait before the handle is the device OSD's
+(osd_depth > 0): it reads the failed-lane count, which sizes the OSD batch
+and skips it when no lane failed (``_osd_rescue``).
 
 truncate_stage is not ported (CUDA events split the stages,
 scripts/torch_stages.py) and raises NotImplementedError.
@@ -65,7 +68,7 @@ from uwspr_tpu_torch.demod.finesync import (
     probe_derotate,
     shared_probe_eval,
 )
-from uwspr_tpu_torch.device import exact_f32, resolve_device
+from uwspr_tpu_torch.device import exact_f32, resolve_device, to_device
 from uwspr_tpu_torch.fec.fano import fano_decode_batch
 from uwspr_tpu_torch.fec.host import check_backend, fano_decode_batch_host
 from uwspr_tpu_torch.fec.osd import accept_osd
@@ -172,13 +175,23 @@ class DeviceDecoder:
         fano_mode "device": packed (W, C, 23) float32 (column layout of
         jit_decoder.py:178-182; ``unpack_output`` gives the typed fields);
         fano_mode "host": packed prefano (W, C, 12+164J) float32
-        (``_pack_prefano``; ``host_fano_assemble`` decodes it)."""
+        (``_pack_prefano``; ``host_fano_assemble`` decodes it).
+
+        Returns once the batch's work is queued on the current stream,
+        without waiting for the card (the JAX decoder's dispatch): the
+        packed tensor is a handle, and ``fetch`` waits for it. A numpy
+        input is copied from pinned memory without blocking; a tensor on
+        the decoder's device is used as it is. So a caller keeps several
+        handles in flight by calling this for each batch before fetching
+        the first. With osd_depth > 0 (device engine) the call waits once,
+        for the failed-lane count that sizes the OSD batch
+        (``_osd_rescue``)."""
         ri = torch.as_tensor(ri)
         if ri.dim() != 3 or ri.shape[1] != 2:
             raise ValueError(f"ri must be (W, 2, fl), got {tuple(ri.shape)}")
         if ri.dtype != torch.float32:
             raise ValueError(f"ri must be float32, got {ri.dtype}")
-        ri = ri.to(self.device)
+        ri = to_device(ri, self.device)
         with torch.no_grad(), exact_f32():
             pre = self.prefano(ri)
             if self.fano_mode == "host":
@@ -188,12 +201,14 @@ class DeviceDecoder:
     def decode_ri_batch(self, ri: torch.Tensor | np.ndarray
                         ) -> DeviceDecoderOutput:
         """(W, 2, fl) float32 windows -> typed output, following fano_mode
-        (jit_decoder.py:1228-1233)."""
+        (jit_decoder.py:1228-1233): ``decode_windows_ri``, which queues the
+        batch without a host wait, then ``fetch``, which waits for it."""
         return self.fetch(self.decode_windows_ri(ri))
 
     def fetch(self, packed: torch.Tensor) -> DeviceDecoderOutput:
         """A packed result of decode_windows_ri (any leading dims) -> typed
-        output: unpacked, or in fano_mode "host" Fano-decoded on the host."""
+        output: unpacked, or in fano_mode "host" Fano-decoded on the host.
+        Waits for the card to finish the batch."""
         if self.fano_mode == "host":
             return self.host_fano_assemble(packed)
         return self.unpack_output(packed)
@@ -492,8 +507,7 @@ class DeviceDecoder:
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
-        selmask = zeros(W * C, torch.bool)
-        selmask[sel] = True
+        selmask = zeros(W * C, torch.bool).index_fill_(0, sel, True)
         return {
             "valid": head["valid"].reshape(W, C),
             "snr": head["snr"].reshape(W, C),
@@ -551,10 +565,8 @@ class DeviceDecoder:
         shift[sel] = head["shift"]
         drift = flat["drift"].clone()
         drift[sel] = head["drift"]
-        kept = zeros(W * C, torch.bool)
-        kept[sel] = True
-        tailed = zeros(ML, torch.bool)
-        tailed[sel2] = True
+        kept = zeros(W * C, torch.bool).index_fill_(0, sel, True)
+        tailed = zeros(ML, torch.bool).index_fill_(0, sel2, True)
         worth_dropped = zeros(W * C, torch.bool)
         worth_dropped[sel] = worthy & ~tailed
         overflow = ((flat["valid"] & ~kept).reshape(W, C).sum(dim=1)
@@ -574,49 +586,35 @@ class DeviceDecoder:
 
     # -- Fano (jit_decoder.py:865-1022) -------------------------------------
 
-    def _compact_fano(self, gate_flat: torch.Tensor, deint_flat: torch.Tensor,
-                      cap: int):
-        """Every gated lane of the flat batch is decoded in fixed chunks of
-        FL = min(cap, N) lanes, gated first; the last chunk is clamped to
-        N - FL and re-decodes a few done lanes with identical results
-        (jit_decoder.py:865-926). Nothing runs when no lane is gated.
-        Returns (success (N,), data (N, 10))."""
+    def _compact_fano(self, gate_flat: torch.Tensor,
+                      deint_flat: torch.Tensor):
+        """Every gated lane of the flat batch decoded by one Fano call over
+        all N lanes with ``active`` the gate: the kernel walks each lane on
+        its own and an inactive lane starts done (success False, data
+        zero), so every lane gets the bytes of the reference's never-drop
+        chunk walk (jit_decoder.py:865-926), and no count is read on the
+        host. Returns (success (N,), data (N, 10))."""
         dcfg = self.config.demod
-        dev = gate_flat.device
-        N = gate_flat.shape[0]
-        FL = min(cap, N)
-        sel_all = torch.argsort((~gate_flat).to(torch.int8), stable=True)
-        n_gated = int(gate_flat.sum())
-        succ = torch.zeros(N, dtype=torch.bool, device=dev)
-        data = torch.zeros((N, _NBYTES), dtype=torch.uint8, device=dev)
-        i = 0
-        while i * FL < n_gated:
-            start = min(i * FL, N - FL)
-            sel = sel_all[start:start + FL]
-            g = gate_flat[sel]
-            out = fano_decode_batch(deint_flat[sel], self.state["mettab"], g,
-                                    maxcycles=dcfg.maxcycles,
-                                    delta=dcfg.fano_delta)
-            succ[sel] = out["success"] & g
-            data[sel] = out["data"]
-            i += 1
-        return succ, data
+        out = fano_decode_batch(deint_flat, self.state["mettab"], gate_flat,
+                                maxcycles=dcfg.maxcycles,
+                                delta=dcfg.fano_delta)
+        return out["success"] & gate_flat, out["data"]
 
     def _fano_phase(self, gate: torch.Tensor, deint: torch.Tensor):
         """One Fano phase over (W, N) gated lanes with (W, N, 162) symbols
         -> success (W, N), data (W, N, 10), overflow (W,). With
         fano_compact_lanes > 0 every gated lane of the batch is decoded
-        (_compact_fano); otherwise at most fano_max_lanes gated lanes per
+        (_compact_fano: the knob sets no chunk width on the card, one call
+        takes every lane); otherwise at most fano_max_lanes gated lanes per
         window, gated first, in one call over W*ML lanes, and the gated
         lanes beyond the cap are the overflow (jit_decoder.py:949-966,
         :984-1000)."""
         dcfg = self.config.demod
         W, N = gate.shape
         dev = gate.device
-        cap = dcfg.fano_compact_lanes
-        if cap > 0:
+        if dcfg.fano_compact_lanes > 0:
             succ, data = self._compact_fano(gate.reshape(W * N),
-                                            deint.reshape(W * N, 162), cap)
+                                            deint.reshape(W * N, 162))
             return (succ.reshape(W, N), data.reshape(W, N, _NBYTES),
                     torch.zeros(W, dtype=torch.int64, device=dev))
         ML = min(dcfg.fano_max_lanes, N)
@@ -693,6 +691,12 @@ class DeviceDecoder:
         osd_min_margin, or the two lanes' payloads agree and margin >=
         osd_margin_agree). Only the failed lanes among the compacted ones
         are decoded; the others could not be accepted.
+
+        The host waits here, the device engine's one wait before its
+        handle: the failed-lane count sizes the OSD batch and skips it when
+        no lane failed. Decoding all osd_max_lanes lanes instead would run
+        the whole OSD stage (thousands of small launches) on every batch;
+        a per-lane OSD kernel would remove the wait.
 
         Fields (W, C[, J]) -> (any_success, payload, jbest, osd, dropped),
         each (W, C[, 7])."""

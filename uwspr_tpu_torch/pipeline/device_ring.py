@@ -18,10 +18,13 @@ has read its ring before the hop after next writes it again.
 
 ``stage()`` starts a block's host-to-device copy from pinned memory on a
 copy stream and records an event; ``push_hop`` makes the compute stream
-wait on it. PyTorch runs eagerly, and the Fano chunk loop reads its
-gated-lane count on the host, so ``push_hop`` returns once the decode has
-reached that read; the returned packed tensor is the handle ``fetch``
-turns into typed output.
+wait on it. A numpy block given to ``push_hop`` or ``push_hops`` goes out
+from pinned memory on the compute stream without blocking. Every entry
+returns once its work is queued, without waiting for the card, as the JAX
+ring's dispatch does; the returned packed tensor is the handle ``fetch``
+turns into typed output, and ``fetch`` waits. Holding several handles
+overlaps the hops' copies, decodes and fetches. With osd_depth > 0 the
+device OSD waits once a hop (DeviceDecoder.decode_windows_ri).
 
 Window alignment: the host windower emits the first fl samples once
 ceil(fl/hop) hops arrived; the ring always decodes the newest fl samples,
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from uwspr_tpu_torch.config import PipelineConfig, with_serving_defaults
-from uwspr_tpu_torch.device import resolve_device
+from uwspr_tpu_torch.device import resolve_device, to_device
 from uwspr_tpu_torch.pipeline.device_decoder import (DeviceDecoder,
                                                      DeviceDecoderOutput)
 from uwspr_tpu_torch.pipeline.stream import StreamStats, device_result
@@ -132,12 +135,14 @@ class DeviceRingDecoder:
 
     def _upload(self, block: np.ndarray, scale: np.ndarray):
         b, s = self._host_tensors(block, scale)
-        return b.to(self.device), None if s is None else s.to(self.device)
+        return (to_device(b, self.device),
+                None if s is None else to_device(s, self.device))
 
     def stage(self, block) -> StagedBlock:
         """Start the host-to-device copy of a future hop block now, from
         pinned memory on the copy stream (on a CUDA device), so that it
-        overlaps the current decode; pass the result to push_hop."""
+        overlaps the current decode; pass the result to push_hop. Returns
+        once the copy is queued, without waiting for the card."""
         b, s = self._host_tensors(*self._as_blocks(block))
         if self._copy_stream is None:
             return StagedBlock(b, s, None, ())
@@ -178,7 +183,10 @@ class DeviceRingDecoder:
         pre-quantised (C, 2, hop) int16 block (unit scale, with
         ingest_dtype "int16"), or a StagedBlock from stage(). Returns the
         packed decode of all channels on the device once the ring holds a
-        full window, else None (prefill)."""
+        full window, else None (prefill). Returns once the hop's copy,
+        shift and decode are queued, without waiting for the card; ``fetch``
+        waits for the handle (with osd_depth > 0 the decode waits once, for
+        the OSD's failed-lane count)."""
         if isinstance(block, StagedBlock):
             b, s = self._staged(block)
         else:
@@ -193,7 +201,8 @@ class DeviceRingDecoder:
         """Ingest K hops at once with one host-to-device copy, decoding
         after each; returns the packed (K, C, ...) results. The ring must
         already be full (prefill with push_hop). blocks: (K, C, hop)
-        complex or (K, C, 2, hop) float32/int16."""
+        complex or (K, C, 2, hop) float32/int16. Returns once the K hops
+        are queued, without waiting for the card, as push_hop does."""
         if self._filled + self.hop < self.fl:
             raise RuntimeError("prefill the ring with push_hop first")
         blocks = np.asarray(blocks)
