@@ -90,12 +90,19 @@ Phases, each raising on failure (nothing is caught):
    device memory;
 12. on-device OSD: 32 windows of one frame at -30 dB (the deep-SNR recipe
    of scripts/bench_matrix.py, seed 5) at osd_depth 4 against osd_depth 0
-   under with_serving_defaults(., 32): every Fano decode of the OSD-off
-   run kept, at least one OSD-tagged spot and every one of them the
-   transmitted message; the rescue's lanes through fec/osd_torch.py on the
-   card equal to the CPU run and, for the first 16, to the host
-   fec/osd.osd_decode at order 4; the OSD stage's ms and the decode's with
-   OSD on and off;
+   under with_serving_defaults(., 32): the OSD kernel (csrc/osd.cu)
+   launched once a decode, over the fixed 2 x osd_max_lanes rescue lanes;
+   every Fano decode of the OSD-off run kept, at least one OSD-tagged spot
+   and every one of them the transmitted message; the decoder's packed
+   output bitwise equal to the same decoder's with the plain OSD
+   (fec/osd_torch.py's tensor version) in the kernel's place; the kernel
+   on the captured lanes bit for bit equal to the plain version, with the
+   decoder's active mask (inactive lanes 0) and with every lane active,
+   and its first 16 active lanes to the host fec/osd.osd_decode at order
+   4; the OSD stage (_osd_rescue) under torch.profiler (launches, idle
+   share), the kernel against the plain version in turns behind the spin
+   kernel beside its bound (POPC issue), and the decode's ms with OSD on
+   and off;
 13. multipass: StreamDecoder(passes=2) with the device and hybrid engines
    on tests/test_multipass.py's masked scene (seed 100) decodes the strong
    frame in pass 0 and the weak one in pass 1, passes=1 misses the weak
@@ -110,7 +117,8 @@ Phases, each raising on failure (nothing is caught):
 14. timing: each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function (torch.stft for the STFT,
    the plain version's complex torch.bmm for the probe; none for the
-   selection walk and the Fano search) at the paths' shapes, with CUDA
+   selection walk, the Fano search and the OSD, whose timing is phase
+   12's) at the paths' shapes, with CUDA
    events, in turns plain, kernel, library, library, kernel, plain, each
    turn behind a spin kernel so that calls run back to back on the card;
    kernel and plain are also held equal on those inputs. Each kernel's bound is
@@ -176,7 +184,10 @@ Phases, each raising on failure (nothing is caught):
    process print the spot lines of serve --runtime python on the same
    synthetic source; (d) NCCL asked for two ranks on this one card (this
    script with the argument mesh-refusal, two ranks) raises the port's
-   SharedDeviceError. (e) times a mesh step by CUDA events and the host
+   SharedDeviceError. In (a), after a warm step, ShardedDecoder.decode
+   under sync debug mode "error" returns the all-reduced count as a (1,)
+   tensor on the card, equal to the warm step's (a synchronising op inside
+   torch.distributed would be named and recorded, one in the port fails). (e) times a mesh step by CUDA events and the host
    clock, the halo exchange's share of it and channel-windows/s: (a) in
    turns with BatchedStreamDecoder on the same stream, (b) in its ranks
    before their checks, with nothing else on the card (four ranks on one
@@ -232,9 +243,10 @@ Phases, each raising on failure (nothing is caught):
    work is queued. (a) Under torch.cuda.set_sync_debug_mode("error"),
    which raises on any synchronising op, decode_windows_ri from a numpy
    block and from the resident tensor on bench.py's scene (the serving
-   config, default and stft_impl="pallas": 128/128; PipelineConfig()
-   without compaction, with and without refine_max_lanes: decodes
-   recorded) and on the wideband scene (W = 32: 320/320), and a
+   config, default, stft_impl="pallas" and osd_depth 4 with the OSD
+   kernel: 128/128; PipelineConfig() without compaction, with and without
+   refine_max_lanes: decodes recorded) and on the wideband scene (W = 32:
+   320/320), and a
    DeviceRingDecoder on phase 10's stream
    (push_hop from a numpy block on the first decoding hop, which cuts
    frames, then from a StagedBlock, then push_hops(2)); every handle
@@ -257,8 +269,9 @@ multipass times, a JSON line of the CLI phase's results, a JSON line of
 the mesh phase's results, a JSON line of the harness phase's results, a
 JSON line of the scaling phase's results, a JSON line of the async
 phase's results, then a JSON line of per-kernel results (launches
-on the main path, on the ring and on every other path, times, bound,
-library call) before the last line, and as the last line
+on the main path (the OSD kernel's: phase 12's decode), on the ring and on
+every other path, times, bound, library call) before the last line, and
+as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -1766,12 +1779,34 @@ def profile_call(fn):
             [(k[:60], round(t, 3), n) for k, (t, n) in top])
 
 
-def phase_osd(card):
+# POPC issues at 16 a clock on an SM (the CUDA C++ Programming Guide's
+# throughput table, compute capability 9.0); a flip-search candidate of the
+# OSD kernel is 32 of them (4 words x 8 bit-planes), and a lane at order k
+# has sum_{i <= k} C(50, i) candidates
+POPC_PER_SM_CLOCK = 16
+OSD_POPC_PER_CANDIDATE = 32
+
+
+def osd_candidates(order: int) -> int:
+    import math
+    return sum(math.comb(50, i) for i in range(order + 1))
+
+
+def osd_equal(a, b):
+    """Two OSD results (bits, quality, margin, flips) bit for bit."""
+    import torch
+    return all(x.shape == y.shape and torch.equal(
+        x.cpu().view(torch.int32), y.cpu().view(torch.int32))
+        for x, y in zip(a, b))
+
+
+def phase_osd(card, sm_mhz):
     """On-device OSD at order 4 against the same windows with OSD off."""
     import torch
 
     from uwspr_tpu_torch.config import (DemodConfig, PipelineConfig,
                                         with_serving_defaults)
+    from uwspr_tpu_torch.fec import osd_torch
     from uwspr_tpu_torch.fec.osd import osd_decode
     from uwspr_tpu_torch.pipeline import device_decoder as ddm
     ri_c = torch.from_numpy(deep_windows()).cuda()
@@ -1781,19 +1816,30 @@ def phase_osd(card):
                                                   OSD_WINDOWS), device="cuda")
     for d_ in (on, off):
         d_.decode_windows_ri(ri_c)
-    # the rescue's lanes, as the decoder hands them to osd_torch
-    captured = []
+    ML = min(on.config.demod.osd_max_lanes, OSD_WINDOWS * on.n_cand)
+    # the rescue's lanes and stage inputs, as the decoder hands them on
+    captured, stage = [], []
     decode_lanes = ddm.osd_decode_lanes
+    rescue = on._osd_rescue
 
-    def recording(lanes, G, order):
-        captured.append((lanes.clone(), order))
-        return decode_lanes(lanes, G, order)
+    def recording(lanes, G, order, active=None):
+        captured.append((lanes.clone(), active.clone(), order))
+        return decode_lanes(lanes, G, order, active)
+
+    def recording_stage(*args):
+        stage.append(args)
+        return rescue(*args)
     ddm.osd_decode_lanes = recording
+    on._osd_rescue = recording_stage
     try:
         out_on, launches, _ = path_run(on, ri_c, ("select_best",
-                                                  "fano_decode"), "osd")
+                                                  "fano_decode",
+                                                  "osd_decode"), "osd")
     finally:
         ddm.osd_decode_lanes = decode_lanes
+        del on._osd_rescue
+    require(launches["osd_decode"] == 1,
+            f"osd: {launches['osd_decode']} OSD kernel launches in a decode")
     ton = on.unpack_output(out_on)
     toff = off.unpack_output(off.decode_windows_ri(ri_c))
     s = toff.success
@@ -1814,45 +1860,103 @@ def phase_osd(card):
     require(len(tagged) >= 1, "osd: no OSD-tagged spot")
     require(all(sp.message == EXPECTED for sp in tagged),
             "osd: an OSD-tagged spot is not the transmitted message")
-    require(len(captured) == 1 and captured[0][1] == 4,
-            f"osd: {len(captured)} OSD batches")
-    lanes = captured[0][0]
+    require(len(captured) == 1 and captured[0][2] == 4
+            and tuple(captured[0][0].shape) == (2 * ML, 162)
+            and captured[0][0].dtype == torch.uint8,
+            f"osd: {len(captured)} OSD calls, not one (2 x {ML}, 162) u8 "
+            f"call at order 4")
+    lanes, active, _ = captured[0]
+    n_active = int(active.sum())
     G = on._osd_G
-    u, q, m, f = decode_lanes(lanes, G, 4)
-    uc, qc, mc, fc = decode_lanes(lanes.cpu(), G.cpu(), 4)
-    require(all(torch.equal(a.cpu(), b) for a, b in
-                ((u, uc), (q, qc), (m, mc), (f, fc))),
-            "osd: osd_torch on the card differs from the CPU run")
-    lanes_np = lanes.cpu().numpy().astype(np.uint8)
+
+    # the whole decoder with the plain OSD in the kernel's place
+    def plain_lanes(lanes, G, order, active=None):
+        return osd_torch.osd_decode_lanes_plain(lanes, G, order, active)
+    ddm.osd_decode_lanes = plain_lanes
+    try:
+        out_plain = on.decode_windows_ri(ri_c)
+    finally:
+        ddm.osd_decode_lanes = decode_lanes
+    require(torch.equal(out_plain, out_on), "osd: the decoder's packed output "
+            "with the OSD kernel differs from the plain OSD's")
+    log(f"[osd] the decoder with the plain OSD (osd_torch's batched tensor "
+        f"version) in the kernel's place: packed output bitwise equal")
+
+    # the kernel against the plain version on the captured lanes, with the
+    # decoder's active mask and with every lane active
+    kern = decode_lanes(lanes, G, 4, active)
+    require(osd_equal(kern, osd_torch.osd_decode_lanes_plain(
+        lanes.cpu(), G.cpu(), 4, active.cpu())),
+        "osd: the kernel differs from the plain version (decoder's mask)")
+    kall = decode_lanes(lanes, G, 4)
+    pall = osd_torch.osd_decode_lanes_plain(lanes.cpu(), G.cpu(), 4)
+    require(osd_equal(kall, pall),
+            "osd: the kernel differs from the plain version (all lanes)")
+    err = max(float((a.cpu().double() - b.double()).abs().max())
+              for a, b in zip(kall, pall))
+    u, q, m, f = (x.cpu() for x in kern)
+    lanes_np = lanes.cpu().numpy()
+    act = np.nonzero(active.cpu().numpy())[0]
     dq = 0.0
-    for i in range(min(OSD_HOST_LANES, len(lanes_np))):
+    for i in act[:OSD_HOST_LANES]:
         ref = osd_decode(lanes_np[i], order=4)
-        require(np.array_equal(u[i].cpu().numpy(), ref.info_bits)
+        require(np.array_equal(u[i].numpy(), ref.info_bits)
                 and int(f[i]) == ref.flips,
                 f"osd: lane {i} differs from the host osd_decode")
         dq = max(dq, abs(float(q[i]) - ref.quality),
                  abs(float(m[i]) - ref.margin))
     require(dq < 1e-3, f"osd: quality/margin {dq:.3g} from the host")
-    log(f"[osd] {len(lanes_np)} rescue lanes: osd_torch on the card == the "
-        f"CPU run (bits, quality, margin, flips); the first "
-        f"{min(OSD_HOST_LANES, len(lanes_np))} == host osd_decode order 4 "
-        f"(bits, flips; quality/margin within {dq:.3g})")
-    ms, turns, _ = time_turns([("osd", lambda: decode_lanes(lanes, G, 4))],
-                              {"osd": 3})
-    wall, nk, kms, top = profile_call(lambda: decode_lanes(lanes, G, 4))
+    log(f"[osd] the OSD kernel on the {2 * ML} captured rescue lanes "
+        f"({n_active} active): == the plain version (bits, quality, margin, "
+        f"flips bit for bit) with the decoder's mask (inactive lanes 0) and "
+        f"with every lane active; the first {min(OSD_HOST_LANES, len(act))} "
+        f"active lanes == host osd_decode order 4 (bits, flips; quality/"
+        f"margin within {dq:.3g})")
+
+    # the stage (_osd_rescue: gathers, the kernel, acceptance, scatters)
+    # under torch.profiler, and the kernel against the plain version in
+    # turns behind the spin kernel
+    args, = stage
+    wall, nk, kms, top = profile_call(lambda: rescue(*args))
     log(f"[osd] {card}: the OSD stage under torch.profiler: wall "
         f"{wall:.3f} ms, {nk} kernel launches, kernels {kms:.3f} ms (idle "
         f"share {1 - kms / wall:.4f}); most device time: {top}")
+    ms, turns, _ = time_turns(
+        [("plain", lambda: plain_lanes(lanes, G, 4, active)),
+         ("kernel", lambda: decode_lanes(lanes, G, 4, active))],
+        {"plain": 1, "kernel": 10})
+    popc = n_active * osd_candidates(4) * OSD_POPC_PER_CANDIDATE
+    rate = (POPC_PER_SM_CLOCK * sm_mhz * 1e6
+            * torch.cuda.get_device_properties(0).multi_processor_count)
+    nbytes = lanes.numel() + active.numel() + G.numel() * 4 + 2 * ML * 212
+    bnd = bound(nbytes, popc, rate, "popc")
+    e = entry("osd_decode", "osd.cu",
+              "uwspr_tpu/pipeline/jit_decoder.py:1096", [2 * ML, 162],
+              ms["kernel"], ms["plain"], bnd, None, None, err)
+    # not a TPU kernel: the JAX package leaves osd2_decode_jax, vmapped
+    # there, to XLA
+    e["pallas"] = False
+    log(f"[timing] {card}: osd_decode at order 4 on the {2 * ML} rescue "
+        f"lanes ({n_active} active): kernel {ms['kernel']:.4f} ms, plain "
+        f"(the batched tensor version on the card) {ms['plain']:.3f} ms, "
+        f"library none (no PyTorch call decodes OSD); bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_kind']}: {popc:,} POPC at "
+        f"{POPC_PER_SM_CLOCK} a clock on each SM at {sm_mhz} MHz), "
+        f"{100 * e['bound_share']:.1f} % of it (turns {fmt_turns(turns)}); "
+        f"kernel == plain")
     dturns = [decode_timed(d_, ri_c)[1:] for d_ in (off, on, on, off)]
-    log(f"[osd] {card}: the OSD stage (osd_torch order 4 on {len(lanes_np)} "
-        f"lanes) {ms['osd']:.3f} ms (turns {fmt_turns(turns)}); decode "
-        f"ms/window by CUDA events off {(dturns[0][0] + dturns[3][0]) / 2:.4f}"
-        f", on {(dturns[1][0] + dturns[2][0]) / 2:.4f} (turns off/on/on/off "
-        f"{', '.join(f'{t[0]:.4f}/{t[1]:.4f}' for t in dturns)}, events/wall)")
-    return {"launches": launches, "osd_ms": ms["osd"],
-            "osd_kernel_launches": nk, "osd_kernel_ms": kms,
-            "osd_lanes": len(lanes_np), "fano_decoded": fano_ok,
-            "with_osd_decoded": both_ok, "osd_tagged": len(tagged),
+    log(f"[osd] {card}: decode ms/window by CUDA events off "
+        f"{(dturns[0][0] + dturns[3][0]) / 2:.4f}, on "
+        f"{(dturns[1][0] + dturns[2][0]) / 2:.4f} (turns off/on/on/off "
+        f"{', '.join(f'{t[0]:.4f}/{t[1]:.4f}' for t in dturns)}, "
+        f"events/wall)")
+    return {"launches": launches, "entry": e, "osd_kernel_ms": ms["kernel"],
+            "osd_plain_ms": ms["plain"], "stage_wall_ms": wall,
+            "stage_kernel_launches": nk, "stage_kernel_ms": kms,
+            "stage_idle_share": 1 - kms / wall,
+            "osd_lanes": 2 * ML, "osd_active_lanes": n_active,
+            "fano_decoded": fano_ok, "with_osd_decoded": both_ok,
+            "osd_tagged": len(tagged),
             "ms_off": (dturns[0][0] + dturns[3][0]) / 2,
             "ms_on": (dturns[1][0] + dturns[2][0]) / 2}
 
@@ -2411,6 +2515,7 @@ def mesh_world_of_one(card, z, starts, single):
             x0 = z[:, :dec.step_len]
             tail0 = z[:, dec.step_len:dec.step_len + dec.halo]
             step = mesh_step_timing(dec, x0, tail0)
+            count = mesh_count_on_card(dec.dec, x0, tail0)
             state = {}
 
             def mesh_setup():
@@ -2456,7 +2561,47 @@ def mesh_world_of_one(card, z, starts, single):
         f"({run['batched']['channel_windows_s']:.1f} channel-windows/s); "
         f"events mesh {run['mesh']['run_ms']:.1f}, batched "
         f"{run['batched']['run_ms']:.1f} ms")
-    return launches, lines, {"step": step, "stream": run, "cut": len(cut)}
+    return launches, lines, {"step": step, "stream": run, "cut": len(cut),
+                             "count": count}
+
+
+def mesh_count_on_card(sdec, x0, tail0):
+    """ShardedDecoder.decode over NCCL after a warm step, under sync debug
+    mode "error": it returns the all-reduced count as a (1,) tensor on the
+    card, equal to the warm step's. A synchronising op raises; one inside
+    torch.distributed (NCCL's own calls) is named and recorded, one in the
+    port fails the phase."""
+    import traceback
+
+    import torch
+    _, warm = sdec.decode(x0, tail0)
+    want = int(warm)
+    torch.cuda.synchronize()
+    res = {"sync_op": None}
+    try:
+        with sync_errors():
+            _, n = sdec.decode(x0, tail0)
+    except RuntimeError as exc:
+        frames = traceback.extract_tb(exc.__traceback__)
+        inner = frames[-1]
+        where = f"{inner.filename}:{inner.lineno} ({inner.name})"
+        require("torch/distributed" in inner.filename.replace("\\", "/"),
+                f"mesh 1x1: ShardedDecoder.decode synchronised at {where}: "
+                f"{exc}")
+        res["sync_op"] = f"{where}: {str(exc).splitlines()[0]}"
+        log(f"[mesh] 1x1: NCCL's own call synchronised under sync debug "
+            f"mode \"error\": {res['sync_op']}")
+        _, n = sdec.decode(x0, tail0)
+    require(isinstance(n, torch.Tensor) and n.device.type == "cuda"
+            and tuple(n.shape) == (1,) and int(n) == want,
+            f"mesh 1x1: decode's count {n!r}, want a (1,) tensor on the "
+            f"card equal to {want}")
+    res.update(on_card=True, count=want)
+    if res["sync_op"] is None:
+        log(f"[mesh] 1x1: ShardedDecoder.decode under sync debug mode "
+            f"\"error\" after a warm step: no synchronising op; the count "
+            f"{want} comes back as a (1,) int64 tensor on the card")
+    return res
 
 
 def launcher(n, *argv, env=None):
@@ -2865,7 +3010,7 @@ def harness_osd():
     base, deep = osd_sweeps.decoders("device", osd_sweeps.DEPTHS["device"],
                                      osd_sweeps.TRIALS, device="cuda")
     out, launches, secs = harness_path(
-        ("select_best", "fano_decode"), f"OSD device sweep "
+        ("select_best", "fano_decode", "osd_decode"), f"OSD device sweep "
         f"{HARNESS_OSD_SNR} dB", lambda: osd_sweeps.run_point(
             "device", base, deep, HARNESS_OSD_SNR, osd_sweeps.TRIALS))
     r = osd_sweeps.row(HARNESS_OSD_SNR, out, secs)
@@ -3188,6 +3333,8 @@ def phase_async(card, dec, ri, ri_c):
     udec = DeviceDecoder(PipelineConfig(), device="cuda")
     rdec = DeviceDecoder(PipelineConfig(demod=DemodConfig(
         refine_max_lanes=2 * N_WINDOWS)), device="cuda")
+    odec = DeviceDecoder(with_serving_defaults(PipelineConfig(
+        demod=DemodConfig(osd_depth=4)), N_WINDOWS), device="cuda")
     wri, wexp = wideband_windows()
     wdec = DeviceDecoder(with_serving_defaults(PipelineConfig(
         coarse=CoarseConfig(halfbandwidth=187, maxfreqs=200)), WB_WINDOWS),
@@ -3197,12 +3344,13 @@ def phase_async(card, dec, ri, ri_c):
              ("pallas", pdec, ri, ri_c, both + ("stft_power",)),
              ("uncompacted", udec, ri, ri_c, both),
              ("refine_max_lanes", rdec, ri, ri_c, both),
+             ("osd_depth 4", odec, ri, ri_c, both + ("osd_decode",)),
              ("wideband", wdec, wri, torch.from_numpy(wri).cuda(), both))
     for name, d, host_in, dev_in, kernels in cases:
         d.decode_windows_ri(dev_in)
         torch.cuda.synchronize()
         want, launches, _ = path_run(d, dev_in, kernels, f"async {name}")
-        paths[f"async_{name}"] = launches
+        paths[f"async_{name.replace(' ', '_')}"] = launches
         got, _ = mode_run(name, kernels, lambda: [
             d.decode_windows_ri(host_in), d.decode_windows_ri(dev_in)])
         for h, src in zip(got, ("numpy", "device tensor")):
@@ -3652,7 +3800,7 @@ def main() -> int:
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
     ring_launches, htod, stream, ring, single = phase_runtimes(card)
     wide = phase_wideband(card)
-    osd = phase_osd(card)
+    osd = phase_osd(card, sm_mhz)
     multi = phase_multipass(card)
     cli, cli_launches = phase_cli(card)
     mesh, mesh_launches = phase_mesh(card, single)
@@ -3665,6 +3813,7 @@ def main() -> int:
     probes = timing_probe(card, z_ri, cases)
     stfts = timing_stft(card, z, kw, stft_inputs, wide)
     runtimes = timing_runtimes(card, stream, ring, htod)
+    osd_e = osd["entry"]
     sel = sels["device"]
     sel["other_shapes"] = {k: {f: sels[k][f] for f in (
         "shape", "ms", "plain_ms", "bound_ms", "library_ms")}
@@ -3689,10 +3838,11 @@ def main() -> int:
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
-                      (stf, pallas_launches["stft_power"], stft_err)):
+                      (stf, pallas_launches["stft_power"], stft_err),
+                      (osd_e, osd["launches"]["osd_decode"], 0.0)):
         e["launches"] = n
         e["ring_launches"] = ring_launches[e["name"]]
-        e["path_launches"] = {k: v[e["name"]] for k, v in paths.items()}
+        e["path_launches"] = {k: v.get(e["name"]) for k, v in paths.items()}
         e["max_abs_err"] = max(e["max_abs_err"], err)
     fan["max_abs_err"] = max([fan["max_abs_err"]] + [
         r["fano_max_abs_err"] for r in REPLAYED.values()])
@@ -3710,7 +3860,7 @@ def main() -> int:
                       "wideband": {k: wide[k] for k in (
                           "ms", "wall_ms", "peak_mib", "decoded")},
                       "osd": {k: v for k, v in osd.items()
-                              if k != "launches"},
+                              if k not in ("launches", "entry")},
                       "multipass": {k: {f: v[f] for f in (
                           "passes2_ms", "passes1_ms")}
                           for k, v in multi.items()}}), flush=True)
@@ -3719,7 +3869,7 @@ def main() -> int:
     print(json.dumps({"harness": harness}), flush=True)
     print(json.dumps({"scaling": scale}), flush=True)
     print(json.dumps({"async": asyn}), flush=True)
-    print(json.dumps({"kernels": [sel, fan, prb, stf]}), flush=True)
+    print(json.dumps({"kernels": [sel, fan, prb, stf, osd_e]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,15 +4,16 @@
 ``push_hops`` and ``stage`` queue a batch's work and return without
 waiting for the card, as the JAX decoder's dispatch does: no Python value
 may depend on a tensor's contents between a batch's input and its packed
-handle (the device OSD, osd_depth > 0, is the one documented wait and is
-not on these paths).
+handle, in any config.
 
 - The guard: with ``Tensor.__bool__``, ``__int__``, ``__float__``,
   ``__index__``, ``item`` and ``tolist`` made to raise (except inside the
-  plain versions of the selection and Fano kernels, which stand in for the
-  CUDA kernels here), the serving config, the config without compaction
-  (with and without refine_max_lanes), the pallas-STFT config and the ring
-  (a numpy hop, a staged hop, push_hops) decode on the CPU.
+  plain versions of the selection, Fano and OSD kernels, which stand in
+  for the CUDA kernels here), the serving config, the config without
+  compaction (with and without refine_max_lanes), the pallas-STFT config,
+  the device OSD at osd_depth 2 and 4 (the JAX program's fixed shape:
+  osd_max_lanes lanes a batch, the failed mask as the kernel's active)
+  and the ring (a numpy hop, a staged hop, push_hops) decode on the CPU.
 - The never-drop Fano, now one call per phase over every lane with
   ``active`` the gate, against the JAX package's chunked ``_compact_fano``
   at fano_compact_lanes 1, 3 and 64 (more gated lanes than the first two
@@ -85,7 +86,7 @@ def no_host_reads(monkeypatch):
                 inside[0] -= 1
         return call
     with monkeypatch.context() as m:
-        for name in ("select_best", "fano_decode_batch"):
+        for name in ("select_best", "fano_decode_batch", "osd_decode_lanes"):
             m.setattr(device_decoder, name,
                       allowed(getattr(device_decoder, name)))
         for name in HOST_READS:
@@ -106,6 +107,10 @@ CONFIGS = {
         TOY, refine_max_lanes=4)),
     "pallas STFT": dc.replace(SERVING, coarse=CoarseConfig(
         stft_impl="pallas")),
+    "osd_depth 2": dc.replace(SERVING, demod=dc.replace(
+        SERVING.demod, osd_depth=2)),
+    "osd_depth 4": dc.replace(SERVING, demod=dc.replace(
+        SERVING.demod, osd_depth=4)),
 }
 
 

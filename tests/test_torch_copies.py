@@ -15,7 +15,8 @@ Three kinds of test:
   docstrings and the package their imports name.
 - separation: a static walk of the AST of every port source file (and of
   chip_smoke.py and the port's scripts torch_stages.py,
-  torch_async_readings.py and torch_select_fano_tuning.py) for imports of
+  torch_async_readings.py, torch_osd_kernel.py and
+  torch_select_fano_tuning.py) for imports of
   ``uwspr_tpu`` or ``jax`` and paths into ``uwspr_tpu/``.
 
 ``jax_config`` turns a port config into the JAX package's config of the
@@ -391,6 +392,7 @@ PORT_FILES = sorted(
      for p in (ROOT / "uwspr_tpu_torch").rglob("*.py")]
     + ["chip_smoke.py", "scripts/torch_stages.py",
        "scripts/torch_async_readings.py",
+       "scripts/torch_osd_kernel.py",
        "scripts/torch_select_fano_tuning.py"])
 # a "file:line" reference to the TPU kernel a port kernel replaces is text,
 # not a path the program reads

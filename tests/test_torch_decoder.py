@@ -350,6 +350,30 @@ def test_device_osd_lane_cap_matches_jax():
     assert int((t.osd > 0).sum()) == 1
 
 
+def test_device_osd_fixed_shape_packed_matches_jax():
+    """osd_max_lanes 2 over the 3 windows: the JAX program's fixed shape
+    (2 lanes a batch, the failed mask as active) rescues two failed lanes
+    and drops the third into fano_overflow. The packed (W, C, 23) outputs
+    equal the JAX DeviceDecoder's column by column: snr and sync to the
+    module's tolerances, every other column exactly (payload where
+    either decoder reports success)."""
+    cfg = dc.replace(OSD_CFG, demod=dc.replace(OSD_CFG.demod,
+                                               osd_max_lanes=2))
+    jdec = JaxDecoder(jax_config(cfg))
+    tdec = DeviceDecoder(cfg, device="cpu")
+    jp = np.asarray(jdec.decode_windows_ri(OSD_RI))
+    tp = tdec.decode_windows_ri(torch.from_numpy(OSD_RI)).numpy()
+    assert tp.shape == jp.shape == (3, tdec.n_cand, 23)
+    j, t = tdec.unpack_output(jp), tdec.unpack_output(tp)
+    assert_outputs_match(t, j, tdec)
+    exact = [0, 1, 2, 5, 6, 7, 8, 20, 21, 22]
+    np.testing.assert_array_equal(tp[..., exact], jp[..., exact])
+    s = (tp[..., 0] > 0.5) | (jp[..., 0] > 0.5)
+    np.testing.assert_array_equal(tp[..., 13:20][s], jp[..., 13:20][s])
+    assert int((t.osd > 0).sum()) == 2
+    assert int(t.fano_overflow.sum()) >= 1
+
+
 def test_device_osd_noise_window_yields_no_spots():
     """tests/test_osd.py:167-181: a noise-only window gives no spots."""
     rng = np.random.default_rng(33)

@@ -125,6 +125,8 @@ def test_sharded_decoder_count_on_every_rank(world, jax_decoder_run):
     j, n = jax_decoder_run
     assert n == int(j["success"].sum())
     for res, _ in world.ranks():
+        # the all-reduced count comes back as a (1,) tensor, not an int
+        assert res["decoder_count_type"] == ["Tensor", [1], "torch.int64"]
         assert res["decoder_count"] == n
         assert res["decoder_count_local"] == n
 

@@ -216,15 +216,17 @@ def run(rank: int, world: int, store: str, out: pathlib.Path) -> None:
     sd = ShardedDecoder(decoder_config(), mesh)
     packed, n = sd.decode(x, tail)
     arrays["decoder"] = packed.numpy()
-    res["decoder_count"] = n
+    res["decoder_count_type"] = [type(n).__name__, list(n.shape),
+                                 str(n.dtype)]
+    res["decoder_count"] = int(n)
     # the rank's own window, sliced from the stream, through the decoder
     full = np.concatenate([x, tail], axis=1)[c, t * sd.hop:t * sd.hop + sd.fl]
     own = sd.decoder.decode_windows_ri(torch.from_numpy(
         np.stack([full.real, full.imag])[None].astype(np.float32)))
     arrays["decoder_own_window"] = own.numpy()
     start, count = process_local_channels(2, mesh)
-    _, res["decoder_count_local"] = sd.decode(
-        x[start:start + count], tail[start:start + count], local=True)
+    res["decoder_count_local"] = int(sd.decode(
+        x[start:start + count], tail[start:start + count], local=True)[1])
 
     meshes = {(2, 2): mesh, (1, 4): global_mesh(1, 4, "cpu")}
     z, _ = stream_scene()

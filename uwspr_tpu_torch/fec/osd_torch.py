@@ -1,10 +1,23 @@
 """Ordered-statistics decoding (order <= 4) on tensors, batched over lanes.
 
 Counterpart of uwspr_tpu/fec/osd_jax.py::osd2_decode_jax, the device and
-mesh engines' deep-SNR fallback. The JAX function decodes one lane and is
-vmapped; here every step carries a leading lane axis L, and the JAX
-fori_loops (50 elimination rounds, 50 Gauss-Jordan rounds, the 50 order-4
-chunks) are host loops over batched tensors:
+mesh engines' deep-SNR fallback, which the JAX package vmaps over the
+rescue lanes and leaves to XLA.
+
+``osd_decode_lanes`` is the entry point. For CUDA tensors it launches
+``csrc/osd.cu`` (one lane per block, the lane's logic in
+``csrc/osd_lane.cuh``: a counting rank, the information set and its
+inverse by column operations on 64-bit row masks, and the flip search as
+integer scores, a weighted popcount over the parity positions) and counts
+the launch in ``KERNEL_LAUNCHES``. It reads nothing on the host: an
+inactive lane starts done, so the caller passes a fixed number of lanes
+with ``active`` the mask of those to decode. For CPU tensors it runs
+``osd_decode_lanes_plain`` on the active lanes and counts the call in
+``PLAIN_CALLS``.
+
+The plain version steps every lane of a batch through the JAX function's
+stages; its fori_loops (50 elimination rounds, 50 Gauss-Jordan rounds, the
+50 order-4 chunks) are host loops over batched tensors:
 
 - reliability sort: one stable argsort of -|soft - 128| per lane (the u8
   soft symbols tie often, so stability decides the information set);
@@ -24,7 +37,8 @@ dimension is at most 162), reduced with ``remainder(., 2)``; torch has no
 integer matmul on CUDA. With the decoders' u8 soft symbols every score is
 an integer or a half-integer below 2**24, so the sums are exact in any
 order and the winners, flip counts, quality and margin equal the JAX
-function's. Products run under ``exact_f32``.
+function's, and the kernel's integer scores. Products run under
+``exact_f32``.
 """
 
 from __future__ import annotations
@@ -32,8 +46,19 @@ from __future__ import annotations
 import torch
 
 from uwspr_tpu_torch.device import exact_f32
+from uwspr_tpu_torch.utils import cuda_build
 
 N, K = 162, 50
+
+# launches of the CUDA kernel / calls of the plain version, in this process
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counters() -> None:
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
 
 
 def _gf2_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -109,21 +134,103 @@ def _onehot_sum(L: int, dev, *idx: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def osd_decode_lanes(soft: torch.Tensor, G: torch.Tensor, order: int = 2
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                torch.Tensor]:
-    """(L, 162) float32 soft symbols in the Fano convention (>= 128 means
-    coded bit 1, |x - 128| is the reliability) and the (162, 50) 0/1
-    generator (fec.osd.generator_matrix, the decoder state's osd_G) as
-    float32 on the same device -> (info bits (L, 50) int32, quality (L,)
-    float32, margin (L,) float32, flips (L,) int32), lane by lane the
-    result of osd2_decode_jax (osd_jax.py:87-218) at ``order``."""
+def _check(soft, G, order, active):
     if order not in (1, 2, 3, 4):
         raise ValueError(f"OSD order {order} not in 1..4")
     if soft.dim() != 2 or soft.shape[1] != N:
         raise ValueError(f"soft must be (L, {N}), got {tuple(soft.shape)}")
+    if tuple(G.shape) != (N, K):
+        raise ValueError(f"G must be ({N}, {K}), got {tuple(G.shape)}")
+    for name, x in (("G", G), ("active", active)):
+        if x is not None and x.device != soft.device:
+            raise ValueError(f"{name} lies on {x.device}, soft on "
+                             f"{soft.device}")
+    if active is not None and tuple(active.shape) != (soft.shape[0],):
+        raise ValueError(f"active must be ({soft.shape[0]},)")
+
+
+def _check_kernel(soft, G, active):
+    """What the kernel reads as it is: u8 soft, float32 G, bool or u8
+    active, each contiguous."""
+    if soft.dtype != torch.uint8:
+        raise ValueError(f"the OSD kernel takes u8 soft symbols, got "
+                         f"{soft.dtype}")
+    if G.dtype != torch.float32:
+        raise ValueError(f"the OSD kernel takes a float32 G, got {G.dtype}")
+    if active is not None and active.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"active must be bool or u8, got {active.dtype}")
+    for name, x in (("soft", soft), ("G", G), ("active", active)):
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def osd_decode_lanes(soft: torch.Tensor, G: torch.Tensor, order: int = 2,
+                     active: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """(L, 162) soft symbols in the Fano convention (>= 128 means coded bit
+    1, |x - 128| is the reliability), the (162, 50) 0/1 generator
+    (fec.osd.generator_matrix, the decoder state's osd_G, float32 on the
+    same device) and ``active`` (L,) bool, or None for every lane ->
+    (info bits (L, 50) int32, quality (L,) float32, margin (L,) float32,
+    flips (L,) int32): on an active lane the result of osd2_decode_jax
+    (osd_jax.py:87-218) at ``order``, on an inactive one bits 0, quality 0,
+    margin 0 and flips 0.
+
+    On a CUDA tensor soft must be u8 and every input contiguous (the
+    decoders pass their u8 symbols); the kernel launches without a host
+    read, and anything else raises. On a CPU tensor soft may be u8 or
+    float32 holding u8 values (tests/test_torch_osd.py and chip_smoke.py
+    pass float32); the plain version decodes the active lanes only."""
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    _check(soft, G, order, active)
+    if soft.device.type == "cpu":
+        PLAIN_CALLS += 1
+        return osd_decode_lanes_plain(soft, G, order, active)
+    if soft.device.type != "cuda":
+        raise ValueError(f"osd_decode_lanes: unsupported device "
+                         f"{soft.device}")
+    _check_kernel(soft, G, active)
+    dev = soft.device
+    L = soft.shape[0]
+    bits = torch.empty((L, K), dtype=torch.int32, device=dev)
+    quality = torch.empty(L, dtype=torch.float32, device=dev)
+    margin = torch.empty(L, dtype=torch.float32, device=dev)
+    flips = torch.empty(L, dtype=torch.int32, device=dev)
+    lib = cuda_build.load_library()
+    code = lib.uwspr_osd_decode(
+        soft.data_ptr(), None if active is None else active.data_ptr(),
+        G.data_ptr(), L, order, bits.data_ptr(), quality.data_ptr(),
+        margin.data_ptr(), flips.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch("uwspr_osd_decode", code)
+    KERNEL_LAUNCHES += 1
+    return bits, quality, margin, flips
+
+
+def osd_decode_lanes_plain(soft: torch.Tensor, G: torch.Tensor,
+                           order: int = 2,
+                           active: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """The batched tensor version of ``osd_decode_lanes`` on any device.
+    With ``active`` it decodes the active lanes alone (it reads the mask on
+    the host) and gives the inactive ones the kernel's outputs."""
+    _check(soft, G, order, active)
     with exact_f32():
-        return _decode(soft.float(), G.float(), order)
+        if active is None:
+            return _decode(soft.float(), G.float(), order)
+        L = soft.shape[0]
+        dev = soft.device
+        bits = torch.zeros((L, K), dtype=torch.int32, device=dev)
+        quality = torch.zeros(L, dtype=torch.float32, device=dev)
+        margin = torch.zeros(L, dtype=torch.float32, device=dev)
+        flips = torch.zeros(L, dtype=torch.int32, device=dev)
+        idx = torch.nonzero(active.bool()).flatten()
+        if idx.numel():
+            u, q, m, f = _decode(soft[idx].float(), G.float(), order)
+            bits[idx], quality[idx], margin[idx], flips[idx] = u, q, m, f
+        return bits, quality, margin, flips
 
 
 def _decode(soft, G, order):
@@ -230,9 +337,11 @@ def bits_to_payload(u: torch.Tensor) -> torch.Tensor:
     trailing 6 bits zero (osd_jax.py:221-227)."""
     pad = torch.zeros(u.shape[:-1] + (6,), dtype=u.dtype, device=u.device)
     b = torch.cat([u, pad], dim=-1).reshape(u.shape[:-1] + (7, 8))
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                           device=u.device)
-    return (b.to(torch.int32) * weights).sum(dim=-1).to(torch.uint8)
+    # the bit weights made on the device: a host list would cross as a
+    # blocking copy
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=u.device)
+    return (b.to(torch.int32) << shifts).sum(dim=-1).to(torch.uint8)
 
 
-__all__ = ["bits_to_payload", "osd_decode_lanes"]
+__all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS", "bits_to_payload",
+           "osd_decode_lanes", "osd_decode_lanes_plain", "reset_counters"]

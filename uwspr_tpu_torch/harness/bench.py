@@ -39,7 +39,7 @@ import torch
 from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig,
                                     PipelineConfig)
 from uwspr_tpu_torch.device import resolve_device
-from uwspr_tpu_torch.fec import fano
+from uwspr_tpu_torch.fec import fano, osd_torch
 from uwspr_tpu_torch.harness import common, scenes
 from uwspr_tpu_torch.ops import probe, select, stft
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
@@ -47,7 +47,8 @@ from uwspr_tpu_torch.utils.roofline import analyze, cost_of
 
 BASELINE_SAMPLES_PER_S = 5000.0
 COUNTED = (("select_best", select), ("fano_decode", fano),
-           ("probe_powers", probe), ("stft_power", stft))
+           ("probe_powers", probe), ("stft_power", stft),
+           ("osd_decode", osd_torch))
 FANO_REFUSED = ("BENCH_FANO_IMPL={!r}: the lax.while_loop Fano is on "
                 "ROADMAP.md's do-not-port list; the port's on-device Fano "
                 "is its CUDA kernel (BENCH_FANO_IMPL=auto)")

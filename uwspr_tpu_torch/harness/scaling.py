@@ -420,6 +420,7 @@ def row_inventory(mesh, row, config: PipelineConfig) -> dict:
     dec = ShardedDecoder(config, mesh)
     (count, d), kd = _recorded(
         lambda: _logged(mesh, lambda: dec.decode(x, tail)[1]), dec.device)
+    count = int(count)
     sdec = ShardedStreamDecoder(config, mesh, n_channels=n_ch * cps,
                                 wins_per_shard=wps)
     (spots, s), ks = _recorded(
@@ -459,7 +460,7 @@ def dryrun_pod(mesh, cps: int) -> dict:
     x, tail, frames = pod_scene(mesh.shape[0], cps)
     (packed, n), kernels = _recorded(lambda: dec.decode(x, tail),
                                      dec.device)
-    return {"spots": n, "frames_embedded": frames,
+    return {"spots": int(n), "frames_embedded": frames,
             "messages": _block_messages(dec, packed),
             "step_seconds": _step_seconds(lambda: dec.decode(x, tail),
                                           dec.device), **kernels}
@@ -549,9 +550,10 @@ def _control(dec: ShardedDecoder, spec) -> dict:
     b = common.timed_call(lambda: dec.decode(x, tail), dev, CONTROL_REPS)
     windows = channels * wps
     return {"scene": scene, "channels": channels, "wins_per_shard": wps,
-            "windows": windows, "spots_recorded": n, "kernels": kernels,
+            "windows": windows, "spots_recorded": int(n),
+            "kernels": kernels,
             "frames_embedded": channels if scene == "channel" else 1,
-            "spots": b.out[1], "step_s": b.seconds,
+            "spots": int(b.out[1]), "step_s": b.seconds,
             "step_event_s": b.event_seconds, "first_s": b.first_seconds,
             "ms_per_window": b.seconds / windows * 1e3,
             "ms_per_window_events": (None if b.event_seconds is None else

@@ -38,7 +38,10 @@ when the decode runs on a card, and the extended row goes to the device in
 one copy after the exchange. The decode itself runs on the rank's device
 either way.
 
-The global spot count is an all_reduce over the mesh. Each rank decodes
+The global spot count is an all_reduce over the mesh, returned as a
+tensor: under NCCL it stays on the card, as the JAX decode's psum does,
+and the rank's input block goes out from pinned memory without a wait, so
+``ShardedDecoder.decode`` queues its work and returns. Each rank decodes
 its (channel, window) block through ``DeviceDecoder.decode_windows_ri``,
 the batched program the single-device runtimes run. ``ShardedStreamDecoder``
 gathers every rank's packed (ch_l, n_win, C, 23) result over the mesh, so
@@ -64,6 +67,7 @@ import torch
 import torch.distributed as dist
 
 from uwspr_tpu_torch.config import PipelineConfig
+from uwspr_tpu_torch.device import to_device
 from uwspr_tpu_torch.parallel.distributed import DEFAULT_TIMEOUT
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
 from uwspr_tpu_torch.protocol.messages import HashTable
@@ -205,10 +209,11 @@ class ShardedDecoder:
 
     def _comm_tensor(self, a: np.ndarray) -> torch.Tensor:
         """A host array as the exchange moves it: a host tensor under
-        gloo (pinned when the decode is on a card), else on the device."""
+        gloo (pinned when the decode is on a card), else on the device,
+        sent from pinned memory without a host wait (``to_device``)."""
         t = torch.from_numpy(np.ascontiguousarray(a))
         if not self._host:
-            return t.to(self.device)
+            return to_device(t, self.device)
         return t.pin_memory() if self.device.type == "cuda" else t
 
     def rank_block(self, x: np.ndarray, tail: np.ndarray | None = None,
@@ -264,10 +269,14 @@ class ShardedDecoder:
         of the stream).
 
         Returns (this rank's packed output (ch_l, n_win, C, K) on its
-        device, the global count). Collective: every rank of the mesh must
-        call it. fano_mode "device": K = 23 and the count is the decoded
-        candidates; "host": the packed prefano and the count of worth
-        lanes (pending host decodes, uwspr_tpu/parallel/mesh.py:155-159)."""
+        device, the global count as a (1,) int64 tensor: on the device
+        under NCCL, as the JAX decode returns its psum, on the host under
+        gloo, whose exchange is the host's). Nothing is read on the host
+        under NCCL; a caller that wants an int converts where it reads the
+        count. Collective: every rank of the mesh must call it. fano_mode
+        "device": K = 23 and the count is the decoded candidates; "host":
+        the packed prefano and the count of worth lanes (pending host
+        decodes, uwspr_tpu/parallel/mesh.py:155-159)."""
         x_ri, tail_ri = self.rank_block(x, tail, local)
         ch_l, n_win = x_ri.shape[0], x_ri.shape[2] // self.hop
         packed = self.decoder.decode_windows_ri(self.windows(x_ri, tail_ri))
@@ -279,7 +288,7 @@ class ShardedDecoder:
         if self._host:
             n = n.cpu()
         dist.all_reduce(n)
-        return packed, int(n.item())
+        return packed, n
 
 
 @dataclasses.dataclass

@@ -38,9 +38,9 @@ engine queues a batch's work and returns without waiting for the card: no
 Python value depends on a tensor's contents, every shape is fixed by the
 config and the batch, and a host input goes out from pinned memory without
 blocking. ``fetch`` (``unpack_output``, the hybrid engine's host Fano) is
-where the host waits. The one wait before the handle is the device OSD's
-(osd_depth > 0): it reads the failed-lane count, which sizes the OSD batch
-and skips it when no lane failed (``_osd_rescue``).
+where the host waits. That holds in every config: the device OSD
+(osd_depth > 0) decodes osd_max_lanes lanes a batch with the failed mask
+as its kernel's ``active`` (``_osd_rescue``), as the JAX program does.
 
 truncate_stage is not ported (CUDA events split the stages,
 scripts/torch_stages.py) and raises NotImplementedError.
@@ -183,9 +183,8 @@ class DeviceDecoder:
         input is copied from pinned memory without blocking; a tensor on
         the decoder's device is used as it is. So a caller keeps several
         handles in flight by calling this for each batch before fetching
-        the first. With osd_depth > 0 (device engine) the call waits once,
-        for the failed-lane count that sizes the OSD batch
-        (``_osd_rescue``)."""
+        the first. The device OSD (osd_depth > 0) adds one kernel launch at
+        a fixed shape and no wait (``_osd_rescue``)."""
         ri = torch.as_tensor(ri)
         if ri.dim() != 3 or ri.shape[1] != 2:
             raise ValueError(f"ri must be (W, 2, fl), got {tuple(ri.shape)}")
@@ -689,14 +688,15 @@ class DeviceDecoder:
         order; failed lanes beyond the cap come back in ``dropped``.
         Acceptance (the r5 rule): quality >= osd_min_quality and (margin >=
         osd_min_margin, or the two lanes' payloads agree and margin >=
-        osd_margin_agree). Only the failed lanes among the compacted ones
-        are decoded; the others could not be accepted.
+        osd_margin_agree), masked by the failed lanes: the others among the
+        compacted ones are decoded as inactive and could not be accepted.
 
-        The host waits here, the device engine's one wait before its
-        handle: the failed-lane count sizes the OSD batch and skips it when
-        no lane failed. Decoding all osd_max_lanes lanes instead would run
-        the whole OSD stage (thousands of small launches) on every batch;
-        a per-lane OSD kernel would remove the wait.
+        The JAX program's fixed shape: every batch takes ML = min(
+        osd_max_lanes, L) lanes, failing lanes first, and decodes both
+        jiggle lanes of each in one ``osd_decode_lanes`` call with
+        ``active`` the failed mask, so no count is read on the host and a
+        batch with no failed lane launches the kernel over inactive lanes,
+        which start done.
 
         Fields (W, C[, J]) -> (any_success, payload, jbest, osd, dropped),
         each (W, C[, 7])."""
@@ -705,39 +705,37 @@ class DeviceDecoder:
         W, C, J = gate.shape
         L = W * C
         dev = gate.device
-        ar = torch.arange(L, device=dev)
         gate_f = gate.reshape(L, J)
         fail = worth.reshape(L) & gate_f.any(dim=1) & ~any_success.reshape(L)
         skey = torch.where(gate_f, sync2.reshape(L, J), -torch.inf)
         jsel = torch.argmax(skey, dim=1)
-        skey[ar, jsel] = -torch.inf
-        jsel2 = torch.argmax(skey, dim=1)          # 2nd-best gated lane
+        first = torch.arange(J, device=dev)[None, :] == jsel[:, None]
+        jsel2 = torch.argmax(torch.where(first, -torch.inf, skey),
+                             dim=1)                # 2nd-best gated lane
         has2 = gate_f.sum(dim=1) >= 2
         ML = min(dcfg.osd_max_lanes, L)
         order = min(dcfg.osd_depth, 4)
         sel = torch.argsort((~fail).to(torch.int8), stable=True)[:ML]
-        dropped = fail.clone()
-        dropped[sel] = False
-        succ = any_success.reshape(L).clone()
-        pay = payload.reshape(L, payload.shape[-1]).clone()
-        jb = jbest.reshape(L).clone()
-        osd = torch.zeros(L, dtype=torch.int64, device=dev)
-        n = min(int(fail.sum()), ML)
-        if n:
-            sel = sel[:n]                          # failed lanes only
-            deint = pre["deint"].reshape(L, J, 162)
-            lanes = torch.cat([deint[sel, jsel[sel]], deint[sel, jsel2[sel]]])
-            u, q, m, _ = osd_decode_lanes(lanes.float(), self._osd_G, order)
-            agree = (u[:n] == u[n:]).all(dim=1) & has2[sel]
-            q, m = q[:n], m[:n]
-            ok = ((q >= dcfg.osd_min_quality)
-                  & ((m >= dcfg.osd_min_margin)
-                     | (agree & (m >= dcfg.osd_margin_agree))))
-            pl = bits_to_payload(u[:n])[:, :pay.shape[-1]]
-            pay[sel] = torch.where(ok[:, None], pl, pay[sel])
-            jb[sel] = torch.where(ok, jsel[sel], jb[sel])
-            succ[sel] = succ[sel] | ok
-            osd[sel] = ok.to(torch.int64) * order
+        fs = fail[sel]
+        deint = pre["deint"].reshape(L, J, 162)
+        lanes = torch.cat([deint[sel, jsel[sel]], deint[sel, jsel2[sel]]])
+        u, q, m, _ = osd_decode_lanes(lanes, self._osd_G, order,
+                                      torch.cat([fs, fs]))
+        agree = (u[:ML] == u[ML:]).all(dim=1) & has2[sel]
+        q, m = q[:ML], m[:ML]
+        ok = fs & ((q >= dcfg.osd_min_quality)
+                   & ((m >= dcfg.osd_min_margin)
+                      | (agree & (m >= dcfg.osd_margin_agree))))
+        pay = payload.reshape(L, payload.shape[-1])
+        pl = bits_to_payload(u[:ML])[:, :pay.shape[-1]]
+        pay = pay.index_copy(0, sel, torch.where(ok[:, None], pl, pay[sel]))
+        jb = jbest.reshape(L)
+        jb = jb.index_copy(0, sel, torch.where(ok, jsel[sel], jb[sel]))
+        succ = any_success.reshape(L)
+        succ = succ.index_copy(0, sel, succ[sel] | ok)
+        osd = torch.zeros(L, dtype=torch.int64, device=dev).index_copy(
+            0, sel, ok.to(torch.int64) * order)
+        dropped = fail.index_fill(0, sel, False)
         return (succ.reshape(W, C), pay.reshape(W, C, -1), jb.reshape(W, C),
                 osd.reshape(W, C), dropped.reshape(W, C))
 

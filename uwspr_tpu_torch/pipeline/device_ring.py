@@ -23,8 +23,8 @@ from pinned memory on the compute stream without blocking. Every entry
 returns once its work is queued, without waiting for the card, as the JAX
 ring's dispatch does; the returned packed tensor is the handle ``fetch``
 turns into typed output, and ``fetch`` waits. Holding several handles
-overlaps the hops' copies, decodes and fetches. With osd_depth > 0 the
-device OSD waits once a hop (DeviceDecoder.decode_windows_ri).
+overlaps the hops' copies, decodes and fetches, the device OSD
+(osd_depth > 0) included.
 
 Window alignment: the host windower emits the first fl samples once
 ceil(fl/hop) hops arrived; the ring always decodes the newest fl samples,
@@ -185,8 +185,7 @@ class DeviceRingDecoder:
         packed decode of all channels on the device once the ring holds a
         full window, else None (prefill). Returns once the hop's copy,
         shift and decode are queued, without waiting for the card; ``fetch``
-        waits for the handle (with osd_depth > 0 the decode waits once, for
-        the OSD's failed-lane count)."""
+        waits for the handle."""
         if isinstance(block, StagedBlock):
             b, s = self._staged(block)
         else:

@@ -14,7 +14,8 @@ digest of the sources, the flags and ``nvcc --version``, so an edited source
 or another toolkit is rebuilt at first use and an unchanged one is loaded as
 it is. There is no ``--use_fast_math``: the selection kernel relies on
 subnormals and IEEE compares, the probe kernel on sincosf's full range
-reduction and the STFT kernel on round-to-nearest products. The first
+reduction, the STFT kernel on round-to-nearest products and the OSD kernel
+on IEEE quality and margin divisions. The first
 kernel call in a process builds and loads; nothing is built at import
 time.
 """
@@ -50,6 +51,9 @@ _SIGNATURES = {
                           _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p],
+    "uwspr_osd_decode": [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
+                         _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                         _C.c_void_p, _C.c_void_p],
     "uwspr_probe_powers_smem": [_C.c_int, _C.c_int],
     "uwspr_probe_powers": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
                            _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
