@@ -164,7 +164,7 @@ Phases, each raising on failure (nothing is caught):
    and a wav receiver flowgraph, written here, through grc, and decode of
    the sender's wav; (i) decode --trace-dir writes a torch.profiler trace
    that names select_best_kernel and fano_kernel; (j) warmup --batch
-   1,128;
+   1,128 captures the serving program of each width and engine;
 16. (run after 15, before the timing of 14) the multi-device layer
    (uwspr_tpu_torch/parallel/) on phase 10's stream at PipelineConfig()
    (the config serve --mesh runs: no compaction, the per-window Fano cap):
@@ -262,13 +262,45 @@ Phases, each raising on failure (nothing is caught):
    checkout). (d) The runs outside the mode are recorded paths: their
    counts zeroed before and read after, every selection and Fano call
    (one Fano launch a phase) replayed as in 11 to 13.
+20. (run after 19, before the timing of 14) the captured programs
+   (uwspr_tpu_torch/pipeline/captured.py): on a card every decode above
+   that is not recorded replays the decoder's CUDA graph of its input
+   shape, captured at the shape's first call; the recorded runs
+   (KernelReplay, phase 12's recording and plain-OSD decodes) run under
+   captured.eager(), and the timed runs capture in their untimed setup.
+   (a) On each path (serving W = 128, stft_impl="pallas", PipelineConfig()
+   without compaction with and without refine_max_lanes, osd_depth 4 on
+   phase 12's -30 dB scene, wideband W = 32, the hybrid engine's prefano,
+   the per-window program of __call__ at W = 1, a DeviceRingDecoder's
+   push_hop and push_hops(2) against an eager ring fed the same blocks,
+   ShardedDecoder (1,1) over NCCL): the first call's and a warm replay's
+   packed output bitwise equal to the same call under eager(), the warm
+   replay's launches (its graphs' kernel nodes) equal to the eager run's,
+   the warm replay under sync debug mode "error" (the mesh: phase 16's check
+   of its warm decode); each captured shape's warm-up and capture seconds
+   and its program's graph pool's growth and size in MiB beside the eager
+   decode's peak memory. The per-window and batch
+   programs hold separate W = 1 graphs, and __call__'s typed output equals
+   its eager run's. (b) Three W = 128 batches of other windows dispatched
+   before one is fetched each equal their own eager result. (c) In turns
+   eager, graph, graph, eager: bench.py's pattern (phase 19 (c)'s
+   readings: host return time, batch CUDA-event time, ms/window, idle
+   share), the same on the osd_depth 4 decoder, the lone-window latency
+   of __call__ and of a (1,1) mesh decode of one window; a warm W = 128
+   call must return on the host in under a tenth of the eager call's
+   return time.
 
 Every path is driven with the kernel counts set to 0 just before it and
-read just after. Prints a JSON line of the runtimes', wideband, OSD and
+read just after. The launches counted are the wrappers' own (each adds one
+where it launches its kernel onto a stream) and those of the captured
+graphs' replays: a replay runs no Python, so each replay adds its graph's
+kernel nodes, read from the captured graph itself when it is captured
+(uwspr_tpu_torch/pipeline/captured.py). Prints a JSON line of the runtimes', wideband, OSD and
 multipass times, a JSON line of the CLI phase's results, a JSON line of
 the mesh phase's results, a JSON line of the harness phase's results, a
 JSON line of the scaling phase's results, a JSON line of the async
-phase's results, then a JSON line of per-kernel results (launches
+phase's results, a JSON line of the captured phase's results, then a JSON
+line of per-kernel results (launches
 on the main path (the OSD kernel's: phase 12's decode), on the ring and on
 every other path, times, bound, library call) before the last line, and
 as the last line
@@ -310,9 +342,32 @@ def reset_all_counters():
 
 
 def read_counters():
-    """(kernel launches, plain calls) of every kernel, by name."""
+    """(kernel launches, plain calls) of every kernel, by name: the
+    wrappers' own launches and the captured graphs' replays (each replay
+    its graph's kernel nodes, read from the graph)."""
     from uwspr_tpu_torch.harness.replay import counters
     return counters()
+
+
+def hand_over():
+    """Return this process's unused cached blocks (and the graph pools of
+    its dropped decoders) to the card, for the other processes that share
+    it: a process's allocator does not give them up to another."""
+    import torch
+    torch.cuda.empty_cache()
+
+
+def log_memory(what):
+    """The card's memory after ``what``: reserved and allocated by this
+    process, and the graph pools of its live programs
+    (pipeline/captured.py)."""
+    import torch
+
+    from uwspr_tpu_torch.pipeline.captured import pool_mib
+    log(f"[memory] after {what}: "
+        f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved, "
+        f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated, graph "
+        f"pools {pool_mib(torch.cuda.current_device()):.0f} MiB")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -806,17 +861,20 @@ def phase_slice(card, dec, ri, ri_c):
     log(f"[slice] warm-up decode of {N_WINDOWS} windows: "
         f"{time.perf_counter() - t0:.3f} s")
     reps = 5
-    torch.cuda.reset_peak_memory_stats()
     reset_all_counters()
-    t0 = time.perf_counter()
     for _ in range(reps):
         out = dec.decode_windows_ri(ri_c)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / reps
     launches, plain = read_counters()
+    log(f"[slice] launches during {reps} decodes (graph replays: the "
+        f"graph's kernel nodes each): {launches}; plain calls: {plain}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dec.decode_windows_ri(ri_c)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
     peak = torch.cuda.max_memory_allocated()
-    log(f"[slice] launches during {reps} decodes: {launches}; plain calls: "
-        f"{plain}")
     require(launches["select_best"] > 0 and launches["fano_decode"] > 0,
             f"a kernel of the path was not launched: {launches}")
     require(all(v == 0 for v in plain.values()),
@@ -1494,6 +1552,7 @@ def timing_runtimes(card, z, ring, htod):
     def batched_setup():
         state["bsd"] = BatchedStreamDecoder(base_config(), n_channels=RING_CH,
                                             batch_windows=128, device=dev)
+        warm_program(state["bsd"]._device, 128)
 
     def batched_run():
         bsd = state["bsd"]
@@ -1503,6 +1562,7 @@ def timing_runtimes(card, z, ring, htod):
     def stream_setup():
         state["sd"] = StreamDecoder(base_config(), n_channels=1,
                                     engine="device", device=dev)
+        warm_program(state["sd"]._device._window_program(), 1)
 
     def stream_run():
         return sum(len(state["sd"].push(hop_block(z[:1], k)))
@@ -1809,6 +1869,7 @@ def phase_osd(card, sm_mhz):
     from uwspr_tpu_torch.fec import osd_torch
     from uwspr_tpu_torch.fec.osd import osd_decode
     from uwspr_tpu_torch.pipeline import device_decoder as ddm
+    from uwspr_tpu_torch.pipeline.captured import eager
     ri_c = torch.from_numpy(deep_windows()).cuda()
     on = ddm.DeviceDecoder(with_serving_defaults(PipelineConfig(
         demod=DemodConfig(osd_depth=4)), OSD_WINDOWS), device="cuda")
@@ -1872,9 +1933,11 @@ def phase_osd(card, sm_mhz):
     # the whole decoder with the plain OSD in the kernel's place
     def plain_lanes(lanes, G, order, active=None):
         return osd_torch.osd_decode_lanes_plain(lanes, G, order, active)
+    # eager: a replay of the captured program would not call the patch
     ddm.osd_decode_lanes = plain_lanes
     try:
-        out_plain = on.decode_windows_ri(ri_c)
+        with eager():
+            out_plain = on.decode_windows_ri(ri_c)
     finally:
         ddm.osd_decode_lanes = decode_lanes
     require(torch.equal(out_plain, out_on), "osd: the decoder's packed output "
@@ -2372,7 +2435,8 @@ def phase_cli(card):
         t0 = time.perf_counter()
         out, _ = run_cli(["warmup", "--batch", "1,128"])
         warm = time.perf_counter() - t0
-        require("W=128 engine=hybrid narrowband: ran in" in out,
+        require("W=128 engine=hybrid narrowband: ran in" in out
+                and out.count("graph pool") == 4,
                 f"cli warmup printed {out!r}")
         log(f"[cli] warmup --batch 1,128 in {warm:.2f} s:\n{out.rstrip()}")
     return ({"decode": decodes, "frontend": frontend, "ring": ring,
@@ -2516,17 +2580,22 @@ def mesh_world_of_one(card, z, starts, single):
             tail0 = z[:, dec.step_len:dec.step_len + dec.halo]
             step = mesh_step_timing(dec, x0, tail0)
             count = mesh_count_on_card(dec.dec, x0, tail0)
+            # the timing builds its own decoders: two programs of 512
+            # uncompacted windows do not fit on the card beside each other
+            del dec
             state = {}
 
             def mesh_setup():
                 state["m"] = ShardedStreamDecoder(
                     base_config(), mesh, n_channels=RING_CH,
                     wins_per_shard=wins)
+                warm_program(state["m"].dec.decoder, RING_CH * wins)
 
             def batched_setup():
                 state["b"] = BatchedStreamDecoder(
                     base_config(), n_channels=RING_CH, batch_windows=128,
                     device="cuda")
+                warm_program(state["b"]._device, 128)
 
             def batched_run():
                 for k in range(RING_HOPS):
@@ -2744,6 +2813,9 @@ def mesh_rank(out_dir):
         if rank == 0:
             (pathlib.Path(out_dir) / "timed").touch()
         lap("timing")
+        # four ranks share the card: one program a rank at a time
+        del dec
+        hand_over()
         dec = stream_decoder()
         with kernel_calls() as calls:
             reset_all_counters()
@@ -2764,6 +2836,8 @@ def mesh_rank(out_dir):
             torch.from_numpy(to_ri(own.reshape(-1, FL))).cuda())
         res["bitwise"] = bool(torch.equal(packed.reshape(want.shape), want))
         lap("bitwise")
+        del dec, packed, want
+        hand_over()
         reset_all_counters()
         _, res["hybrid_lines"] = mesh_feed(stream_decoder("hybrid"), z)
         torch.cuda.synchronize()
@@ -2865,6 +2939,8 @@ def phase_mesh(card, single):
     t0 = time.perf_counter()
     z, starts = make_stream()
     one_launches, _, one = mesh_world_of_one(card, z, starts, single)
+    hand_over()                 # to (b)'s four ranks
+    log_memory("phase 16 (a)")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         ranks = launcher(4, ROOT / "chip_smoke.py", "mesh-rank", tmp)
@@ -3120,6 +3196,12 @@ def scaling_paths(records):
             "scaling_multichip": records["multichip"]["kernels"]}
 
 
+def capture_line(c):
+    return None if c is None else (round(c["capture_s"], 3),
+                                   round(c["pool_mib"], 1),
+                                   round(c["pool_total_mib"], 1))
+
+
 def phase_scaling(card):
     """The multi-chip evidence (see the module doc, phase 18). Returns
     (results, {path: launches})."""
@@ -3146,7 +3228,9 @@ def phase_scaling(card):
             f"{c['frames_embedded']} spots, a step {c['step_s'] * 1e3:.3f} "
             f"ms wall, {c['step_event_s'] * 1e3:.3f} ms events, "
             f"{c['ms_per_window']:.4f} ms/window, peak {c['peak_mib']:.0f} "
-            f"MiB")
+            f"MiB; the eager decode's peak {c['eager_peak_mib']:.0f} MiB, "
+            f"the capture (s, pool growth MiB, pool MiB) "
+            f"{capture_line(c['capture'])}")
     log(f"[scaling] headline compute point {sc['headline']}")
     key80 = f"latency_step_s_for_bound_{scaling.TARGET_EFFICIENCY:g}"
     for r in sc["rows"]:
@@ -3194,7 +3278,8 @@ def phase_scaling(card):
         "seconds": seconds, "headline": sc["headline"],
         "controls": [{k: c[k] for k in (
             "scene", "channels", "wins_per_shard", "spots", "step_s",
-            "step_event_s", "ms_per_window", "peak_mib")}
+            "step_event_s", "ms_per_window", "peak_mib", "eager_peak_mib",
+            "capture")}
             for c in sc["controls"]["rows"]],
         "rows": [{"config": r["config"],
                   "collective_rounds": r["decode"]["collective_rounds"],
@@ -3385,6 +3470,9 @@ def phase_async(card, dec, ri, ri_c):
     for r in rings:
         for k in range(PREFILL):
             r.push_hop(hop_block(z, k))
+    # the first call of a shape captures the program and waits: outside
+    # the mode
+    warm_program(rings[1].decoder, RING_CH)
     torch.cuda.synchronize()
     later = np.stack([hop_block(z, PREFILL + 2 + i) for i in range(2)])
 
@@ -3441,6 +3529,311 @@ def phase_async(card, dec, ri, ri_c):
                  res["bench_pattern"])
     res["seconds"] = time.perf_counter() - t_start
     log(f"[async] phase 19 in {res['seconds']:.1f} s")
+    return res, paths
+
+
+# ---------------------------------------------------------------- phase 20
+
+CAPTURE_TURNS = ("eager", "graph", "graph", "eager")
+LONE_REPS = 20          # lone-window calls timed in each turn
+RETURN_RATIO = 0.1      # a warm W = 128 return against the eager one
+
+
+def warm_program(dec, windows):
+    """Capture ``dec``'s program at ``windows`` windows on a zero batch,
+    so that a timed run that follows replays it."""
+    import torch
+    dec.decode_windows_ri(torch.zeros((windows, 2, FL), dtype=torch.float32,
+                                      device="cuda"))
+
+
+def turn_mode(mode):
+    """The context of one turn: ``captured.eager()`` or nothing."""
+    from uwspr_tpu_torch.pipeline.captured import eager
+    return eager() if mode == "eager" else contextlib.nullcontext()
+
+
+def captures_of(decs):
+    """{shape: (warm-up s, capture s, the pool's growth MiB, the pool's
+    MiB after)} of the decoders' programs, per-window programs
+    included."""
+    out = {}
+    for d in decs:
+        progs = [("batch", d.program)]
+        if d._per_window is not None:
+            progs.append(("per-window", d._per_window.program))
+        for kind, prog in progs:
+            for shape, c in prog.captures.items():
+                out[f"{kind} {shape}"] = (round(c["warmup_s"], 4),
+                                          round(c["capture_s"], 4),
+                                          round(c["pool_mib"], 1),
+                                          round(c["pool_total_mib"], 1))
+    return out
+
+
+def captured_path(what, call, kernels, decs, sync_check=True):
+    """One path as the captured program against ``captured.eager()``: the
+    first call captures each shape the path runs; then one run under
+    eager() and one warm run (under sync debug mode "error" where
+    ``sync_check``), the counts set to 0 just before each and read just
+    after: every output bitwise equal to the eager run's (the first call's
+    too), the replay's launches (its graphs' kernel nodes) equal to the
+    eager run's, the path's kernels launched and no plain version
+    called. ``call()`` returns a
+    packed tensor or a list of them. Returns the path's record."""
+    import torch
+
+    from uwspr_tpu_torch.pipeline.captured import eager
+
+    def listed(x):
+        return list(x) if isinstance(x, (list, tuple)) else [x]
+    first = listed(call())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with eager():
+        reset_all_counters()
+        want = listed(call())
+        torch.cuda.synchronize()
+        eager_counts, _ = read_counters()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    reset_all_counters()
+    with sync_errors() if sync_check else contextlib.nullcontext():
+        got = listed(call())
+    torch.cuda.synchronize()
+    graph_counts, plain = read_counters()
+    require(len(got) == len(want) == len(first)
+            and all(torch.equal(g, w) for g, w in zip(got, want))
+            and all(torch.equal(f, w) for f, w in zip(first, want)),
+            f"captured {what}: the graph replay differs from eager()")
+    require(graph_counts == eager_counts,
+            f"captured {what}: replayed launches {graph_counts}, eager "
+            f"{eager_counts}")
+    require(all(graph_counts[k] > 0 for k in kernels)
+            and all(v == 0 for v in plain.values()),
+            f"captured {what}: launches {graph_counts}, plain {plain}")
+    caps = captures_of(decs)
+    mode = ' under sync debug mode "error"' if sync_check else ""
+    log(f"[captured] {what}: {len(got)} output(s) of the warm replay{mode} "
+        f"bitwise equal to eager(); launches {graph_counts} equal to eager's; "
+        f"captures (warm-up s, capture s, pool growth MiB, pool MiB) by "
+        f"shape {caps}; the "
+        f"eager decode's peak {peak:.1f} MiB above what was allocated")
+    return {"launches": graph_counts, "captures": caps,
+            "eager_peak_mib": peak}
+
+
+def lone_window(dec, z):
+    """Host ms of ``dec(z)`` (the per-window program, its fetch included),
+    LONE_REPS calls after one warm call: (median, min)."""
+    dec(z)
+    ms = []
+    for _ in range(LONE_REPS):
+        t0 = time.perf_counter()
+        dec(z)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    return ms[len(ms) // 2], ms[0]
+
+
+def mesh_lone_window(sdec, x, tail):
+    """Host ms of a (1,1) ShardedDecoder.decode of one window, its count
+    read: (median, min) of LONE_REPS after one warm call."""
+    int(sdec.decode(x, tail)[1])
+    ms = []
+    for _ in range(LONE_REPS):
+        t0 = time.perf_counter()
+        int(sdec.decode(x, tail)[1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    return ms[len(ms) // 2], ms[0]
+
+
+def phase_captured(card, dec, ri, ri_c):
+    """The device engine's captured programs (see the module doc, phase
+    20). Returns (results, launches by path)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig,
+                                        PipelineConfig, with_serving_defaults)
+    from uwspr_tpu_torch.parallel.distributed import global_mesh, initialize
+    from uwspr_tpu_torch.parallel.mesh import ShardedDecoder
+    from uwspr_tpu_torch.pipeline.captured import eager
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    from uwspr_tpu_torch.pipeline.device_ring import DeviceRingDecoder
+    t_start = time.perf_counter()
+    both = ("select_best", "fano_decode")
+    res, paths = {"paths": {}}, {}
+
+    def record(name, r):
+        res["paths"][name] = r
+        paths[f"captured_{name.replace(' ', '_')}"] = r["launches"]
+
+    # (a) bit-identity, launch counts, no synchronising op, on each path
+    deep = torch.from_numpy(deep_windows()).cuda()
+    wri, _ = wideband_windows()
+    wri_c = torch.from_numpy(wri).cuda()
+    cases = (
+        ("serving", lambda: dec, ri_c, both),
+        ("pallas", lambda: DeviceDecoder(with_serving_defaults(
+            PipelineConfig(coarse=CoarseConfig(stft_impl="pallas")),
+            N_WINDOWS), device="cuda"), ri_c, both + ("stft_power",)),
+        ("uncompacted", lambda: DeviceDecoder(PipelineConfig(),
+                                              device="cuda"), ri_c, both),
+        ("refine_max_lanes", lambda: DeviceDecoder(PipelineConfig(
+            demod=DemodConfig(refine_max_lanes=2 * N_WINDOWS)),
+            device="cuda"), ri_c, both),
+        ("osd_depth 4", lambda: DeviceDecoder(with_serving_defaults(
+            PipelineConfig(demod=DemodConfig(osd_depth=4)), OSD_WINDOWS),
+            device="cuda"), deep, both + ("osd_decode",)),
+        ("wideband", lambda: DeviceDecoder(with_serving_defaults(
+            PipelineConfig(coarse=CoarseConfig(halfbandwidth=187,
+                                               maxfreqs=200)), WB_WINDOWS),
+            device="cuda"), wri_c, both),
+        ("hybrid", lambda: DeviceDecoder(with_serving_defaults(
+            PipelineConfig(), N_WINDOWS), device="cuda", fano_mode="host"),
+         ri_c, ("select_best",)),
+    )
+    for name, make, x, kernels in cases:
+        d = make()
+        record(name, captured_path(name, lambda: d.decode_windows_ri(x),
+                                   kernels, [d]))
+        if name == "osd_depth 4":
+            odec = d
+        del d
+
+    # __call__: the per-window program at W = 1, apart from the batch
+    # program's W = 1 graph
+    win = dec._window_program()
+    one = ri_c[:1]
+    record("per-window __call__", captured_path(
+        "per-window __call__", lambda: win.decode_windows_ri(one), both,
+        [dec]))
+    b1 = dec.decode_windows_ri(one)
+    require(win.program is not dec.program
+            and (1, 2, FL) in win.program.captures
+            and (1, 2, FL) in dec.program.captures,
+            "captured: the per-window and batch programs share a cache")
+    z0 = ri[0, 0] + 1j * ri[0, 1]
+    t1 = dec(z0)
+    with eager():
+        t0 = dec(z0)
+    require(all(np.array_equal(getattr(t1, f), getattr(t0, f))
+                for f in ("success", "payload", "freq", "snr", "sync",
+                          "jiggle", "osd")),
+            "captured: __call__ differs from its eager run")
+    alike = torch.equal(b1, win.decode_windows_ri(one))
+    log(f"[captured] __call__ (W = 1) typed output equal to eager(); the "
+        f"batch program's own W = 1 graph is another capture (the batch "
+        f"and per-window outputs {'equal' if alike else 'differ'})")
+
+    # the ring: push_hop from a numpy block, then push_hops(2), a graph
+    # ring against an eager one fed the same blocks
+    z, _ = make_stream()
+    rg, re_ = (DeviceRingDecoder(runtime_config(), n_channels=RING_CH,
+                                 device="cuda") for _ in range(2))
+    for r in (rg, re_):
+        for k in range(PREFILL):
+            r.push_hop(hop_block(z, k))
+    warm_program(rg.decoder, RING_CH)
+    torch.cuda.synchronize()
+    later = np.stack([hop_block(z, PREFILL + 1 + i) for i in range(2)])
+    with eager():
+        reset_all_counters()
+        want = [re_.push_hop(hop_block(z, PREFILL)), re_.push_hops(later)]
+        torch.cuda.synchronize()
+        eager_counts, _ = read_counters()
+    reset_all_counters()
+    with sync_errors():
+        got = [rg.push_hop(hop_block(z, PREFILL)), rg.push_hops(later)]
+    torch.cuda.synchronize()
+    ring_counts, plain = read_counters()
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            "captured ring: push_hop / push_hops differ from eager()")
+    require(ring_counts == eager_counts and all(v == 0 for v in
+                                                plain.values()),
+            f"captured ring: launches {ring_counts}, eager {eager_counts}")
+    record("ring", {"launches": ring_counts,
+                    "captures": captures_of([rg.decoder])})
+    log(f"[captured] ring ({RING_CH} channels): push_hop and push_hops(2) "
+        f"under sync debug mode \"error\" bitwise equal to an eager ring; "
+        f"launches {ring_counts} equal to eager's; captures "
+        f"{captures_of([rg.decoder])}")
+    del rg, re_
+
+    # the mesh: ShardedDecoder (1,1) over NCCL, the collectives outside
+    # the graph; its warm decode under sync debug mode "error" as phase 16
+    x0, tail0 = z[:, :HOP], z[:, HOP:HOP + FL - HOP]
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize("nccl", init_method=f"file://{tmp}/store", world_size=1,
+                   rank=0)
+        try:
+            sdec = ShardedDecoder(PipelineConfig(), global_mesh(1, 1, "cuda"))
+            record("mesh 1x1", captured_path(
+                "mesh 1x1", lambda: sdec.decode(x0, tail0)[0], both,
+                [sdec.decoder], sync_check=False))
+            res["mesh_count"] = mesh_count_on_card(sdec, x0, tail0)
+            lone_mesh = {}
+            for mode in CAPTURE_TURNS:
+                with turn_mode(mode):
+                    lone_mesh.setdefault(mode, []).append(mesh_lone_window(
+                        sdec, x0[:1], tail0[:1]))
+        finally:
+            dist.destroy_process_group()
+    del sdec
+
+    # (b) handles in flight: three batches of other windows dispatched
+    # before one is fetched, each equal to its own eager result
+    sets = [ri_c] + [torch.from_numpy(make_windows(N_WINDOWS, seed=s)).cuda()
+                     for s in (21, 22)]
+    with eager():
+        wants = [dec.decode_windows_ri(x) for x in sets]
+    handles = [dec.decode_windows_ri(x) for x in sets]
+    outs = [dec.fetch(h) for h in handles]
+    require(all(torch.equal(h, w) for h, w in zip(handles, wants)),
+            "captured: a handle in flight differs from its eager result")
+    require(not torch.equal(wants[0], wants[1])
+            and not torch.equal(wants[1], wants[2]),
+            "captured: the three batches decode alike")
+    n_dec = [sum(EXPECTED in dec.messages(o.window(w))
+                 for w in range(N_WINDOWS)) for o in outs]
+    log(f"[captured] three W = {N_WINDOWS} batches of other windows "
+        f"dispatched before one fetch: each equal to its own eager result "
+        f"({n_dec} decoded)")
+    res["in_flight_decoded"] = n_dec
+
+    # (c) readings, in turns eager, graph, graph, eager
+    read = {"bench_pattern": {}, "osd": {}, "lone_window_ms": {}}
+    for mode in CAPTURE_TURNS:
+        with turn_mode(mode):
+            r = async_readings(dec, ri_c)
+            log_readings(card, f"{mode}: serving config (bench.py's "
+                         f"pattern)", r)
+            read["bench_pattern"].setdefault(mode, []).append(r)
+            o = async_readings(odec, deep, batches=4, profiled=2)
+            log_readings(card, f"{mode}: osd_depth 4, {OSD_WINDOWS} windows "
+                         f"at {OSD_SNR_DB} dB", o)
+            read["osd"].setdefault(mode, []).append(o)
+            read["lone_window_ms"].setdefault(mode, []).append(
+                lone_window(dec, z0))
+    read["mesh_lone_window_ms"] = lone_mesh
+    ret = {m: [r["first_return_ms"] for r in read["bench_pattern"][m]]
+           for m in ("eager", "graph")}
+    log(f"[captured] {card}: a warm W = {N_WINDOWS} call returns on the host "
+        f"after {ret['graph']} ms replayed against {ret['eager']} ms eager; "
+        f"lone window (__call__, fetch included; median, min ms) "
+        f"{read['lone_window_ms']}; (1,1) mesh decode of one window "
+        f"{lone_mesh}")
+    require(max(ret["graph"]) < RETURN_RATIO * min(ret["eager"]),
+            f"captured: a warm W = {N_WINDOWS} call returns after "
+            f"{ret['graph']} ms, not under {RETURN_RATIO} of eager's "
+            f"{ret['eager']} ms")
+    res["readings"] = read
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"[captured] phase 20 in {res['seconds']:.1f} s")
     return res, paths
 
 
@@ -3798,15 +4191,27 @@ def main() -> int:
     launches = phase_slice(card, dec, ri, ri_c)
     host_launches, _ = phase_host_slice(card, hdec, ri)
     pallas_launches = phase_pallas_slice(card, dec, ri_c)
+    log_memory("phases 1 to 9")
     ring_launches, htod, stream, ring, single = phase_runtimes(card)
+    log_memory("phase 10")
     wide = phase_wideband(card)
+    log_memory("phase 11")
     osd = phase_osd(card, sm_mhz)
+    log_memory("phase 12")
     multi = phase_multipass(card)
+    log_memory("phase 13")
     cli, cli_launches = phase_cli(card)
+    log_memory("phase 15")
     mesh, mesh_launches = phase_mesh(card, single)
+    log_memory("phase 16")
     harness, harness_launches = phase_harness(card)
+    log_memory("phase 17")
     scale, scaling_launches = phase_scaling(card)
+    log_memory("phase 18")
     asyn, async_launches = phase_async(card, dec, ri, ri_c)
+    log_memory("phase 19")
+    capt, captured_launches = phase_captured(card, dec, ri, ri_c)
+    log_memory("phase 20")
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
@@ -3834,7 +4239,7 @@ def main() -> int:
              "multipass_device": multi["device"]["launches"],
              "multipass_hybrid": multi["hybrid"]["launches"],
              **cli_launches, **mesh_launches, **harness_launches,
-             **scaling_launches, **async_launches}
+             **scaling_launches, **async_launches, **captured_launches}
     for e, n, err in ((sel, launches["select_best"], sel_err),
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
@@ -3869,6 +4274,7 @@ def main() -> int:
     print(json.dumps({"harness": harness}), flush=True)
     print(json.dumps({"scaling": scale}), flush=True)
     print(json.dumps({"async": asyn}), flush=True)
+    print(json.dumps({"captured": capt}), flush=True)
     print(json.dumps({"kernels": [sel, fan, prb, stf, osd_e]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,7 +53,14 @@ def codeword_lanes(n: int = 64, seed: int = 1) -> np.ndarray:
 
 def rescue_lanes():
     """(lanes, active) as the tree's decoder hands them to the kernel in
-    one decode of phase 12's scene."""
+    one decode of phase 12's scene. The decode runs under the tree's
+    ``captured.eager()``: a first call would run the decode twice (its
+    warm-up, then its capture) and a replay would run no Python, so the
+    recorder sees the one call only eagerly. A tree older than the
+    captured programs decodes eagerly as it is."""
+    import contextlib
+    import importlib.util
+
     import torch
 
     from uwspr_tpu_torch.config import (DemodConfig, PipelineConfig,
@@ -68,10 +75,14 @@ def rescue_lanes():
     def recording(lanes, G, order, active=None):
         got.append((lanes.clone(), active.clone()))
         return orig(lanes, G, order, active)
+    eager = contextlib.nullcontext
+    if importlib.util.find_spec("uwspr_tpu_torch.pipeline.captured"):
+        from uwspr_tpu_torch.pipeline.captured import eager
     ddm.osd_decode_lanes = recording
     try:
-        dec.decode_windows_ri(torch.from_numpy(chip_smoke.deep_windows())
-                              .cuda())
+        with eager():
+            dec.decode_windows_ri(
+                torch.from_numpy(chip_smoke.deep_windows()).cuda())
     finally:
         ddm.osd_decode_lanes = orig
     torch.cuda.synchronize()

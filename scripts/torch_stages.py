@@ -16,8 +16,12 @@ Device engine (``--engine device``, the default). Runs bench.py's scene
    first-success select and packing, which is the whole decode) is timed on
    its own, and a stage is its prefix minus the one before. On CUDA a
    prefix is timed with CUDA events; the prefixes are taken in turns, and
-   each figure is the median of ``--reps`` rounds after one warm-up;
-2. on CUDA, three whole decodes under ``torch.profiler``: host wall time,
+   each figure is the median of ``--reps`` rounds after one warm-up. The
+   split runs under ``captured.eager()``: a prefix is a part of the batch
+   program, which the decoder otherwise replays whole as one CUDA graph,
+   so each prefix is timed as the eager launches of its stages;
+2. on CUDA, three whole decodes under ``torch.profiler`` (the decoder's
+   captured program, replayed as it serves): host wall time,
    device busy time (the sum of the kernels' own device time) and the idle
    share 1 - busy / wall, and the top kernels and operators by device time.
    The full table goes to ``DIR/torch_stages_profile.txt`` when ``--out`` is
@@ -84,9 +88,10 @@ def time_prefixes(dec, ri, reps: int, cuda: bool) -> dict:
     import torch
 
     from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.pipeline.captured import eager
     runs = prefixes(dec)
     ms = {name: [] for name in runs}
-    with torch.no_grad(), exact_f32():
+    with torch.no_grad(), exact_f32(), eager():
         for fn in runs.values():
             fn(ri)
         if cuda:

@@ -31,7 +31,9 @@ Counterpart of uwspr_tpu/cli.py, with its subcommands and flags, except:
 - ``decode`` and ``serve`` close with the lanes the device engine's lane
   caps dropped (the packed ``fano_overflow``, refine overflow included).
 - ``warmup`` builds the CUDA kernels and the g++ libraries, then runs one
-  zero batch per width and engine; there is no compile cache to fill.
+  zero batch per width and engine, which on a card captures the serving
+  program; there is no compile cache to fill (a graph lives as long as its
+  process).
 """
 
 from __future__ import annotations
@@ -716,7 +718,13 @@ def _cmd_grc(args):
 def _cmd_warmup(args):
     """Build what a cold ``serve`` would build at its first decode (the
     CUDA kernels on a card, the g++ native Fano and windower) and run one
-    zero batch per (batch width, engine), printing the seconds of each."""
+    zero batch per (batch width, engine), printing the seconds of each. On
+    a card that first call also captures the serving program (the JAX
+    package's pre-compile): its warm-up and capture seconds and the MiB of
+    its graph pool (``torch.cuda.memory_reserved`` before and after) are
+    printed. A graph lives as long as its process, unlike JAX's persistent
+    compile cache: this measures what a cold ``serve`` pays, and fills no
+    cache for a later process."""
     from uwspr_tpu_torch.fec.host import load_native_fano
     from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
     from uwspr_tpu_torch.pipeline.native import load_windower
@@ -750,8 +758,14 @@ def _cmd_warmup(args):
                              device=device)
             t0 = time.time()
             dec.fetch(dec.decode_windows_ri(ri))
-            print(f"  W={w} engine={engine} {band}: ran in "
-                  f"{time.time() - t0:.1f}s")
+            line = (f"  W={w} engine={engine} {band}: ran in "
+                    f"{time.time() - t0:.1f}s")
+            if dec.program is not None:
+                cap = dec.program.captures[tuple(ri.shape)]
+                line += (f" (warm-up {cap['warmup_s']:.2f}s, capture "
+                         f"{cap['capture_s']:.2f}s, graph pool "
+                         f"{cap['pool_mib']:.1f} MiB)")
+            print(line)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -906,7 +920,8 @@ def _parser() -> argparse.ArgumentParser:
 
     wu = sub.add_parser("warmup", parents=[dev],
                         help="build the CUDA and g++ libraries and run one "
-                             "zero batch per width and engine")
+                             "zero batch per width and engine (on a card: "
+                             "capture its program)")
     wu.add_argument("--batch", default="128",
                     help="comma-separated window-batch widths (default "
                          "128, the serving batch)")

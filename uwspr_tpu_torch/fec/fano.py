@@ -30,7 +30,9 @@ import torch
 from uwspr_tpu_torch.protocol.constants import N_CODED_BITS, POLY1, POLY2
 from uwspr_tpu_torch.utils import cuda_build
 
-# launches of the CUDA kernel / calls of the plain version, in this process
+# launches of the CUDA kernel onto a stream (a CUDA graph's capture only
+# records one, and its replays are seen only in a trace of the card) /
+# calls of the plain version, in this process
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
@@ -125,7 +127,8 @@ def fano_decode_batch(symbols: torch.Tensor, mettab: torch.Tensor,
         data.data_ptr(), metric.data_ptr(), cycles.data_ptr(),
         maxnp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("uwspr_fano_decode", code)
-    KERNEL_LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
     return {"success": success, "data": data, "metric": metric,
             "cycles": cycles, "maxnp": maxnp}
 

@@ -50,7 +50,9 @@ from uwspr_tpu_torch.utils import cuda_build
 
 N, K = 162, 50
 
-# launches of the CUDA kernel / calls of the plain version, in this process
+# launches of the CUDA kernel onto a stream (a CUDA graph's capture only
+# records one, and its replays are seen only in a trace of the card) /
+# calls of the plain version, in this process
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
@@ -204,7 +206,8 @@ def osd_decode_lanes(soft: torch.Tensor, G: torch.Tensor, order: int = 2,
         margin.data_ptr(), flips.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch("uwspr_osd_decode", code)
-    KERNEL_LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
     return bits, quality, margin, flips
 
 

@@ -18,12 +18,17 @@ decodes. vs_baseline divides by the reference's real-time rate: one
 (BASELINE.md). BENCH_FANO_IMPL other than "auto" names the lax.while_loop
 Fano, which is not ported; the script refuses it.
 
-The batch is on the card before the timing; each of BENCH_REPS decodes is
+The batch is on the card before the timing; the first decode, untimed,
+also captures the decoder's program (pipeline/captured.py), as bench.py's
+first call compiles; each of BENCH_REPS decodes, a graph replay, is
 timed by CUDA events, the whole run by the host clock ending on
 ``torch.cuda.synchronize()``. Per-batch times and the roofline line
-(utils/roofline.py) go to stderr, and the record to
-torch_results/bench.json, with the run's kernel launches and plain-version
-calls by kernel (the wrappers' counters, over the whole process).
+(utils/roofline.py; its operator count runs the decode under
+``captured.eager()``, since a replay runs no torch operator) go to
+stderr, and the record to torch_results/bench.json, with the kernel
+launches and plain-version calls by kernel over the whole process
+(harness/replay.py::counters: the wrappers' own launches and the graph
+replays' kernel nodes).
 """
 
 from __future__ import annotations
@@ -39,16 +44,13 @@ import torch
 from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig,
                                     PipelineConfig)
 from uwspr_tpu_torch.device import resolve_device
-from uwspr_tpu_torch.fec import fano, osd_torch
 from uwspr_tpu_torch.harness import common, scenes
-from uwspr_tpu_torch.ops import probe, select, stft
+from uwspr_tpu_torch.harness.replay import counters
+from uwspr_tpu_torch.pipeline.captured import eager
 from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
 from uwspr_tpu_torch.utils.roofline import analyze, cost_of
 
 BASELINE_SAMPLES_PER_S = 5000.0
-COUNTED = (("select_best", select), ("fano_decode", fano),
-           ("probe_powers", probe), ("stft_power", stft),
-           ("osd_decode", osd_torch))
 FANO_REFUSED = ("BENCH_FANO_IMPL={!r}: the lax.while_loop Fano is on "
                 "ROADMAP.md's do-not-port list; the port's on-device Fano "
                 "is its CUDA kernel (BENCH_FANO_IMPL=auto)")
@@ -142,13 +144,17 @@ def run(device: torch.device, env=os.environ) -> dict:
 
     line = "not measured (CPU run)"
     if cuda:
-        flops, nbytes = cost_of(decoder.decode_windows_ri, ri)
+        # eager: the operator counter sees each torch call, and a graph
+        # replay runs none
+        with eager():
+            flops, nbytes = cost_of(decoder.decode_windows_ri, ri)
         line = (analyze(flops, nbytes, dt).line() + " (torch operators "
                 "only; the CUDA kernels and memory traffic are not counted)")
     log(f"roofline: {line}")
 
     value = n * 45000.0 / dt if ok == n else 0.0
     ref_ok, ref_n = reference_decoded()
+    launches, plain = counters()
     return {"line": {"metric": "window_samples_per_s_per_chip",
                      "value": round(value, 1), "unit": "samples/s",
                      "vs_baseline": round(value / BASELINE_SAMPLES_PER_S,
@@ -162,8 +168,7 @@ def run(device: torch.device, env=os.environ) -> dict:
                 {"bench_scene": ok / n}, {"bench_scene": ref_ok / ref_n},
                 "decoded", n)},
             "exact": {"every_window_decoded": ok == n},
-            "kernel_launches": {k: m.KERNEL_LAUNCHES for k, m in COUNTED},
-            "plain_calls": {k: m.PLAIN_CALLS for k, m in COUNTED}}
+            "kernel_launches": launches, "plain_calls": plain}
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """The kernels of a path, held to their plain versions on the path's own
-inputs: the wrappers' launch and plain-call counts, and ``KernelReplay``,
-which records every selection, Fano and probe call a decode makes and
-replays each against its oracle afterwards.
+inputs: the launch and plain-call counts (the wrappers' own launches and
+the captured graphs' replays), and ``KernelReplay``, which records every
+selection, Fano and probe call a decode makes and replays each against
+its oracle afterwards.
 
     with KernelReplay() as calls:
         reset_counters()
@@ -23,7 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uwspr_tpu_torch.harness.bench import COUNTED
+from uwspr_tpu_torch.pipeline import captured
+from uwspr_tpu_torch.pipeline.captured import COUNTED, eager
 
 PROBE_RTOL, PROBE_ATOL = 2e-4, 2e-2
 SYNC_ATOL = 1e-5
@@ -33,11 +35,16 @@ FANO_FIELDS = ("success", "data", "metric", "cycles", "maxnp")
 def reset_counters() -> None:
     for _, m in COUNTED:
         m.reset_counters()
+    captured.reset_replay_launches()
 
 
 def counters() -> tuple[dict, dict]:
-    """(kernel launches, plain calls) by kernel, from the wrappers."""
-    return ({k: m.KERNEL_LAUNCHES for k, m in COUNTED},
+    """(kernel launches, plain calls) by kernel. The launches are the
+    wrappers' own (made one by one onto a stream) and those of every
+    captured graph's replays (its kernel nodes, read from the graph: see
+    pipeline/captured.py)."""
+    return ({k: m.KERNEL_LAUNCHES + captured.REPLAY_LAUNCHES[k]
+             for k, m in COUNTED},
             {k: m.PLAIN_CALLS for k, m in COUNTED})
 
 
@@ -88,7 +95,12 @@ class KernelReplay:
     and probe_powers call of the host engine (coarse/search.py and
     demod/finesync.py bind them), so that ``replay()`` can hold each call
     against its oracle afterwards. Host copies leave the card's peak
-    memory as the path alone has it."""
+    memory as the path alone has it.
+
+    While active it is inside ``captured.eager()``: a captured program
+    replays a graph and runs no Python, so the recording wrappers would
+    see no call, and their ``.cpu()`` copies cannot run inside a capture.
+    The recorded run is the eager launches of the same program."""
 
     def __enter__(self):
         from uwspr_tpu_torch.coarse import search
@@ -126,9 +138,12 @@ class KernelReplay:
             return p
         ddm.select_best, ddm.fano_decode_batch = select, fano
         search.select_best, finesync.probe_powers = select, probe
+        self._eager = eager()
+        self._eager.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._eager.__exit__(*exc)
         (self.ddm.select_best, self.ddm.fano_decode_batch,
          self.search.select_best, self.finesync.probe_powers) = self.orig
 

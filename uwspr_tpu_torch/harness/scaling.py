@@ -544,9 +544,16 @@ def _control(dec: ShardedDecoder, spec) -> dict:
     x, tail = (channel_scene(channels, wps) if scene == "channel"
                else time_scene(channels, 1, wps))
     dev = dec.device
-    (_, n), kernels = _recorded(lambda: dec.decode(x, tail), dev)
-    if dev.type == "cuda":
+    cuda = dev.type == "cuda"
+    if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
+    (_, n), kernels = _recorded(lambda: dec.decode(x, tail), dev)
+    eager_peak = torch.cuda.max_memory_allocated(dev) / 2**20 if cuda \
+        else None
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    prog = dec.decoder.program
+    seen = set() if prog is None else set(prog.captures)
     b = common.timed_call(lambda: dec.decode(x, tail), dev, CONTROL_REPS)
     windows = channels * wps
     return {"scene": scene, "channels": channels, "wins_per_shard": wps,
@@ -559,7 +566,13 @@ def _control(dec: ShardedDecoder, spec) -> dict:
             "ms_per_window_events": (None if b.event_seconds is None else
                                      b.event_seconds / windows * 1e3),
             "peak_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
-                         if dev.type == "cuda" else None)}
+                         if cuda else None),
+            "eager_peak_mib": eager_peak,
+            # the warm step's capture of this control's shape, if new: its
+            # seconds, its growth of the card's graph pool and the pool
+            "capture": (None if prog is None else next(
+                (v for k, v in prog.captures.items() if k not in seen),
+                None))}
 
 
 def controls(device: torch.device) -> dict:
@@ -903,6 +916,9 @@ def run(device: torch.device, rank_cmd: list[str] | None = None) -> dict:
         cuda_build.load_library()   # once, before the ranks load it
         load_native_fano()
         ctl = controls(device)
+        # the ranks are other processes: the blocks this one keeps unused
+        # go back to the card before they share it
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         cmd = rank_cmd or ["-m", "uwspr_tpu_torch.harness.scaling",
                            "--device", device.type, "--rank-of"]

@@ -37,7 +37,9 @@ from uwspr_tpu_torch.protocol.constants import (
 )
 from uwspr_tpu_torch.utils import cuda_build
 
-# launches of the CUDA kernel / calls of the plain version, in this process
+# launches of the CUDA kernel onto a stream (a CUDA graph's capture only
+# records one, and its replays are seen only in a trace of the card) /
+# calls of the plain version, in this process
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
@@ -139,7 +141,8 @@ def probe_powers(z_ri: torch.Tensor, lags: torch.Tensor, freqs: torch.Tensor,
         n_lags, F, S, threads, float(PHASE), out.data_ptr(),
         torch.cuda.current_stream(z.device).cuda_stream)
     cuda_build.check_launch("uwspr_probe_powers", code)
-    KERNEL_LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
     return out
 
 

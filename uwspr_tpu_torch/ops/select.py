@@ -27,7 +27,9 @@ import torch
 
 from uwspr_tpu_torch.utils import cuda_build
 
-# launches of the CUDA kernel / calls of the plain version, in this process
+# launches of the CUDA kernel onto a stream (a CUDA graph's capture only
+# records one, and its replays are seen only in a trace of the card) /
+# calls of the plain version, in this process
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
@@ -83,7 +85,8 @@ def select_best(sync: torch.Tensor, is_nonlinear: torch.Tensor, *,
         best.data_ptr(), idx.data_ptr(),
         torch.cuda.current_stream(sync.device).cuda_stream)
     cuda_build.check_launch("uwspr_select_best", code)
-    KERNEL_LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
     return best, idx
 
 

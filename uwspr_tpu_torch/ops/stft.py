@@ -29,7 +29,9 @@ import torch
 from uwspr_tpu_torch.device import resolve_device
 from uwspr_tpu_torch.utils import cuda_build
 
-# launches of the CUDA kernel / calls of the plain version, in this process
+# launches of the CUDA kernel onto a stream (a CUDA graph's capture only
+# records one, and its replays are seen only in a trace of the card) /
+# calls of the plain version, in this process
 KERNEL_LAUNCHES = 0
 PLAIN_CALLS = 0
 
@@ -220,7 +222,8 @@ def stft_power_kernel(z: torch.Tensor, *, n_ffts: int, size: int, hop: int,
         frag.contiguous().data_ptr(), nt, n_blocks, ncols, out.data_ptr(),
         torch.cuda.current_stream(z.device).cuda_stream)
     cuda_build.check_launch("uwspr_stft_power", code)
-    KERNEL_LAUNCHES += 1
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
     return out.reshape(lead + (n_ffts, ncols))
 
 

@@ -43,7 +43,9 @@ tensor: under NCCL it stays on the card, as the JAX decode's psum does,
 and the rank's input block goes out from pinned memory without a wait, so
 ``ShardedDecoder.decode`` queues its work and returns. Each rank decodes
 its (channel, window) block through ``DeviceDecoder.decode_windows_ri``,
-the batched program the single-device runtimes run. ``ShardedStreamDecoder``
+the batched program the single-device runtimes run: on a card the
+decoder's captured CUDA graph, replayed after the halo exchange; the
+collectives stay outside it. ``ShardedStreamDecoder``
 gathers every rank's packed (ch_l, n_win, C, 23) result over the mesh, so
 every rank returns the same spots. Its "hybrid" engine runs the host Fano
 (``DeviceDecoder.host_fano_assemble``) on each rank's own prefano block

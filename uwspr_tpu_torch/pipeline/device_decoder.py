@@ -1,7 +1,8 @@
 """Batched window decoder on one device: samples in, packed messages out.
 
 Counterpart of uwspr_tpu/pipeline/jit_decoder.py::DeviceDecoder, batched
-as its ``_decode_windows_batched`` (jit_decoder.py:698-730):
+as its ``_decode_windows_batched`` (jit_decoder.py:698-730), which the
+JAX decoder jits (jit_decoder.py:156-176):
 
   STFT power (stft_impl "pallas": the fused CUDA kernel, computing only
   the columns read) -> smoothed SNR spectrum -> peak pick -> coarse sync
@@ -42,6 +43,14 @@ where the host waits. That holds in every config: the device OSD
 (osd_depth > 0) decodes osd_max_lanes lanes a batch with the failed mask
 as its kernel's ``active`` (``_osd_rescue``), as the JAX program does.
 
+So on a CUDA device a batch is one program, as the JAX decoder's jit is:
+``decode_windows_ri`` runs through the decoder's ``CapturedProgram``
+(pipeline/captured.py), one CUDA graph per input shape (W, 2, fl),
+captured at the shape's first call and replayed after it: a warm call is
+the input copy, one replay and the output's clone. ``captured.eager()``
+runs the launches one by one instead (for recorders and stage splits). On
+the CPU the decode runs eagerly.
+
 truncate_stage is not ported (CUDA events split the stages,
 scripts/torch_stages.py) and raises NotImplementedError.
 """
@@ -77,6 +86,7 @@ from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
 from uwspr_tpu_torch.params import state_from_numpy, state_keys, state_numpy
+from uwspr_tpu_torch.pipeline.captured import CapturedProgram
 from uwspr_tpu_torch.pipeline.decoder import Spot
 from uwspr_tpu_torch.protocol.constants import FANO_METTAB
 from uwspr_tpu_torch.protocol.messages import unpack_message
@@ -156,6 +166,9 @@ class DeviceDecoder:
         self._osd_G = self.state.get("osd_G") if fano_mode == "device" \
             else None
         self._per_window = None
+        # the batch program on a card (None on the CPU, which runs eagerly)
+        self.program = (CapturedProgram(self.device, self._decode)
+                        if self.device.type == "cuda" else None)
         # host-built constants, moved to the device once: a copy per call
         # would cost host time and wait for the device each time
         cfg = self.config.coarse
@@ -180,17 +193,27 @@ class DeviceDecoder:
         Returns once the batch's work is queued on the current stream,
         without waiting for the card (the JAX decoder's dispatch): the
         packed tensor is a handle, and ``fetch`` waits for it. A numpy
-        input is copied from pinned memory without blocking; a tensor on
-        the decoder's device is used as it is. So a caller keeps several
-        handles in flight by calling this for each batch before fetching
-        the first. The device OSD (osd_depth > 0) adds one kernel launch at
-        a fixed shape and no wait (``_osd_rescue``)."""
+        input is copied from pinned memory without blocking. So a caller
+        keeps several handles in flight by calling this for each batch
+        before fetching the first. The device OSD (osd_depth > 0) adds one
+        kernel launch at a fixed shape and no wait (``_osd_rescue``).
+
+        On a CUDA device the batch is the decoder's captured program at
+        this input shape (see the module doc): the first call of a shape
+        also captures it, and waits on the host; a later one copies the
+        input into the graph's static input and replays it."""
         ri = torch.as_tensor(ri)
         if ri.dim() != 3 or ri.shape[1] != 2:
             raise ValueError(f"ri must be (W, 2, fl), got {tuple(ri.shape)}")
         if ri.dtype != torch.float32:
             raise ValueError(f"ri must be float32, got {ri.dtype}")
-        ri = to_device(ri, self.device)
+        if self.program is not None:
+            return self.program(ri)
+        return self._decode(to_device(ri, self.device))
+
+    def _decode(self, ri: torch.Tensor) -> torch.Tensor:
+        """The batch program: (W, 2, fl) on the decoder's device -> the
+        packed output (full f32 products, no autograd)."""
         with torch.no_grad(), exact_f32():
             pre = self.prefano(ri)
             if self.fano_mode == "host":
@@ -229,14 +252,16 @@ class DeviceDecoder:
         fano_compact_lanes at 0, sharing its state: a batch of one window
         then runs jit_decoder.py:594-696 (every lane refined, at most
         fano_max_lanes gated lanes per Fano phase, OSD over the window's C
-        lanes)."""
+        lanes). The copy has its own captured program: its W = 1 graph is
+        another program than the batch path's at W = 1."""
         if self._per_window is None:
             demod = dataclasses.replace(
                 self.config.demod, cand_compact_lanes=0, refine_max_lanes=0,
                 fano_compact_lanes=0)
             w = copy.copy(self)
             w.config = dataclasses.replace(self.config, demod=demod)
-            w._per_window = w
+            if self.program is not None:
+                w.program = CapturedProgram(self.device, w._decode)
             self._per_window = w
         return self._per_window
 

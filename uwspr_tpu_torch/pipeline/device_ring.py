@@ -16,6 +16,14 @@ partial self-overlap, and a fresh ring per hop would allocate C*2*fl*4
 bytes every 9 s. Both rings live on the compute stream, so a hop's decode
 has read its ring before the hop after next writes it again.
 
+On a card each hop's decode is the decoder's captured program
+(pipeline/captured.py), the counterpart of the JAX ring's one program per
+hop (device_ring.py:94-118): the current ring is copied into the graph's
+static input (C x 2 x fl x 4 bytes, 46 MB at C = 128, tens of
+microseconds at the HBM rate), so one graph serves both ring buffers. The
+shift and the append stay eager launches beside it, and ``push_hops``
+replays it once a hop (JAX scans the K hops in one program).
+
 ``stage()`` starts a block's host-to-device copy from pinned memory on a
 copy stream and records an event; ``push_hop`` makes the compute stream
 wait on it. A numpy block given to ``push_hop`` or ``push_hops`` goes out
