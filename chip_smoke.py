@@ -277,7 +277,12 @@ Phases, each raising on failure (nothing is caught):
    packed output bitwise equal to the same call under eager(), the warm
    replay's launches (its graphs' kernel nodes) equal to the eager run's,
    the warm replay under sync debug mode "error" (the mesh: phase 16's check
-   of its warm decode); each captured shape's warm-up and capture seconds
+   of its warm decode); the stage markers (ops/marks.py): the eager run's
+   marks, each batch's in STAGES order and each stage once, and a
+   torch.profiler trace of one more warm replay holding the same
+   uwspr_mark_* kernels in the same order (the ring: one more hop, graph
+   against eager), its output bitwise equal to the eager run's; each
+   captured shape's warm-up and capture seconds
    and its program's graph pool's growth and size in MiB beside the eager
    decode's peak memory. The per-window and batch
    programs hold separate W = 1 graphs, and __call__'s typed output equals
@@ -3571,6 +3576,60 @@ def captures_of(decs):
     return out
 
 
+@contextlib.contextmanager
+def marks_seen():
+    """The stages of the marks the enclosed eager runs launch, in order
+    (the markers are launched as well)."""
+    from uwspr_tpu_torch.ops import marks
+    seen, real = [], marks.mark
+
+    def record(stage, x):
+        seen.append(stage)
+        real(stage, x)
+    marks.mark = record
+    try:
+        yield seen
+    finally:
+        marks.mark = real
+
+
+def traced_marks(call):
+    """(call()'s result, the stages of the uwspr_mark_* kernels of a
+    torch.profiler trace of it, in start order)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    ks = sorted((int(e.start_ns()), e.name())
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA
+                and e.name().startswith("uwspr_mark_"))
+    return out, [n[len("uwspr_mark_"):] for _, n in ks]
+
+
+def check_marks(what, seen, traced):
+    """Each batch's marks in STAGES order, each stage once, ending with
+    "end"; the trace's markers the same as the eager run's."""
+    from uwspr_tpu_torch.ops.marks import STAGES
+    batches, cur = [], []
+    for stage in seen:
+        cur.append(stage)
+        if stage == "end":
+            batches.append(cur)
+            cur = []
+    require(seen and not cur and all(
+        [STAGES.index(x) for x in b] == sorted({STAGES.index(x) for x in b})
+        for b in batches),
+            f"captured {what}: marks {seen} not in STAGES order")
+    require(traced == seen,
+            f"captured {what}: the replay's traced markers {traced}, the "
+            f"eager run's {seen}")
+
+
 def captured_path(what, call, kernels, decs, sync_check=True):
     """One path as the captured program against ``captured.eager()``: the
     first call captures each shape the path runs; then one run under
@@ -3591,7 +3650,7 @@ def captured_path(what, call, kernels, decs, sync_check=True):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with eager():
+    with eager(), marks_seen() as seen:
         reset_all_counters()
         want = listed(call())
         torch.cuda.synchronize()
@@ -3612,15 +3671,21 @@ def captured_path(what, call, kernels, decs, sync_check=True):
     require(all(graph_counts[k] > 0 for k in kernels)
             and all(v == 0 for v in plain.values()),
             f"captured {what}: launches {graph_counts}, plain {plain}")
+    out, traced = traced_marks(call)
+    require(all(torch.equal(o, w) for o, w in zip(listed(out), want)),
+            f"captured {what}: the traced replay differs from eager()")
+    check_marks(what, seen, traced)
     caps = captures_of(decs)
     mode = ' under sync debug mode "error"' if sync_check else ""
     log(f"[captured] {what}: {len(got)} output(s) of the warm replay{mode} "
         f"bitwise equal to eager(); launches {graph_counts} equal to eager's; "
+        f"a traced replay's markers {traced}, the eager run's marks, "
+        f"output equal; "
         f"captures (warm-up s, capture s, pool growth MiB, pool MiB) by "
         f"shape {caps}; the "
         f"eager decode's peak {peak:.1f} MiB above what was allocated")
     return {"launches": graph_counts, "captures": caps,
-            "eager_peak_mib": peak}
+            "eager_peak_mib": peak, "marks": traced}
 
 
 def lone_window(dec, z):
@@ -3756,11 +3821,20 @@ def phase_captured(card, dec, ri, ri_c):
     require(ring_counts == eager_counts and all(v == 0 for v in
                                                 plain.values()),
             f"captured ring: launches {ring_counts}, eager {eager_counts}")
+    # one more hop: the eager ring's marks against a trace of the replay
+    block = hop_block(z, PREFILL + 3)
+    with eager(), marks_seen() as seen:
+        want = re_.push_hop(block)
+    got, traced = traced_marks(lambda: rg.push_hop(block))
+    require(torch.equal(got, want),
+            "captured ring: the traced hop differs from eager()")
+    check_marks("ring", seen, traced)
     record("ring", {"launches": ring_counts,
-                    "captures": captures_of([rg.decoder])})
+                    "captures": captures_of([rg.decoder]), "marks": traced})
     log(f"[captured] ring ({RING_CH} channels): push_hop and push_hops(2) "
         f"under sync debug mode \"error\" bitwise equal to an eager ring; "
-        f"launches {ring_counts} equal to eager's; captures "
+        f"launches {ring_counts} equal to eager's; a traced hop's markers "
+        f"{traced}, the eager hop's marks, output equal; captures "
         f"{captures_of([rg.decoder])}")
     del rg, re_
 

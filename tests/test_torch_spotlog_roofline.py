@@ -10,6 +10,7 @@
 """
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -105,13 +106,17 @@ def test_profiler_trace_writes_a_trace(tmp_path):
     dec = DeviceDecoder(PipelineConfig(), device="cpu")
     z = synthesize_frame("VE3EMB", "FN25", 30)
     with tprof.trace(str(tmp_path), device="cpu"):
-        with tprof.annotate("one window"):
+        with tprof.span("one_window", 7):
             msgs = dec.messages(dec(z))
     assert msgs == ["VE3EMB FN25 30"]
     files = list(tmp_path.glob("*.pt.trace.json"))
     assert len(files) == 1
-    text = files[0].read_text()
-    assert "one window" in text and "aten::argmax" in text
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"uwspr.one_window", "uwspr.decoder.submit", "uwspr.decoder.fetch",
+            "aten::argmax"} <= names
+    one = [e for e in events if e.get("name") == "uwspr.one_window"]
+    assert len(one) == 1 and one[0]["args"]["Concrete Inputs"] == ["7"]
     with tprof.trace(None, device="cpu"):        # no-op
         pass
     assert len(list(tmp_path.iterdir())) == 1

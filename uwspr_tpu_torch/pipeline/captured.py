@@ -49,6 +49,10 @@ kernel nodes from the graph itself (CUDA's DOT print of the
 every replay adds that graph's kernel nodes to ``REPLAY_LAUNCHES``: what
 a replay launches is what its graph holds.
 
+Tracing: while a profiler runs, a call's input copy, replay and first-call
+capture are the host spans ``uwspr.captured.load``, ``.replay`` and
+``.capture`` (utils/profiler.py).
+
 ``eager()`` is the counterpart of ``jax.disable_jit``: under it a program
 runs its function eagerly and captures nothing. Code that must see each
 call's Python (a recorder that copies a kernel's inputs to the host, an
@@ -74,6 +78,7 @@ import torch
 from uwspr_tpu_torch.device import to_device
 from uwspr_tpu_torch.fec import fano, osd_torch
 from uwspr_tpu_torch.ops import probe, select, stft
+from uwspr_tpu_torch.utils.profiler import span
 
 # the kernel wrappers, by the name their launches are reported under
 COUNTED = (("select_best", select), ("fano_decode", fano),
@@ -202,11 +207,14 @@ class CapturedProgram:
             return self._fn()(to_device(x, self.device))
         g = self._graphs.get(tuple(x.shape))
         if g is None:
-            return self._capture(x)
-        _load(g.static_in, x)
-        g.graph.replay()
-        for k, n in g.launches.items():
-            REPLAY_LAUNCHES[k] += n
+            with span("captured.capture"):
+                return self._capture(x)
+        with span("captured.load"):
+            _load(g.static_in, x)
+        with span("captured.replay"):
+            g.graph.replay()
+            for k, n in g.launches.items():
+                REPLAY_LAUNCHES[k] += n
         return g.static_out.clone()
 
     def _capture(self, x: torch.Tensor) -> torch.Tensor:

@@ -51,6 +51,15 @@ the input copy, one replay and the output's clone. ``captured.eager()``
 runs the launches one by one instead (for recorders and stage splits). On
 the CPU the decode runs eagerly.
 
+Tracing: ``decode_windows_ri``, ``fetch`` and ``spots`` are the host spans
+``uwspr.decoder.submit``, ``.fetch`` and ``.spots`` while a profiler runs
+(utils/profiler.py); a batch's number (``batches``, counted per
+``decode_windows_ri`` call) tags its submit, rides on its handle
+(``uwspr_request``) and tags its fetch. Inside the batch program each stage
+starts with its marker kernel (ops/marks.py), in ``marks.STAGES`` order,
+and ``uwspr_mark_end`` follows the packed output, so a device trace of a
+replay splits by stage.
+
 truncate_stage is not ported (CUDA events split the stages,
 scripts/torch_stages.py) and raises NotImplementedError.
 """
@@ -83,6 +92,7 @@ from uwspr_tpu_torch.fec.host import check_backend, fano_decode_batch_host
 from uwspr_tpu_torch.fec.osd import accept_osd
 from uwspr_tpu_torch.fec.osd_torch import bits_to_payload, osd_decode_lanes
 from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
+from uwspr_tpu_torch.ops import marks
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
 from uwspr_tpu_torch.params import state_from_numpy, state_keys, state_numpy
@@ -90,6 +100,7 @@ from uwspr_tpu_torch.pipeline.captured import CapturedProgram
 from uwspr_tpu_torch.pipeline.decoder import Spot
 from uwspr_tpu_torch.protocol.constants import FANO_METTAB
 from uwspr_tpu_torch.protocol.messages import unpack_message
+from uwspr_tpu_torch.utils.profiler import span
 
 _NBYTES = 10        # Fano harvest bytes; the payload is the first 7
 
@@ -169,6 +180,8 @@ class DeviceDecoder:
         # the batch program on a card (None on the CPU, which runs eagerly)
         self.program = (CapturedProgram(self.device, self._decode)
                         if self.device.type == "cuda" else None)
+        # decode_windows_ri calls so far: the next batch's number
+        self.batches = 0
         # host-built constants, moved to the device once: a copy per call
         # would cost host time and wait for the device each time
         cfg = self.config.coarse
@@ -201,24 +214,40 @@ class DeviceDecoder:
         On a CUDA device the batch is the decoder's captured program at
         this input shape (see the module doc): the first call of a shape
         also captures it, and waits on the host; a later one copies the
-        input into the graph's static input and replays it."""
-        ri = torch.as_tensor(ri)
-        if ri.dim() != 3 or ri.shape[1] != 2:
-            raise ValueError(f"ri must be (W, 2, fl), got {tuple(ri.shape)}")
-        if ri.dtype != torch.float32:
-            raise ValueError(f"ri must be float32, got {ri.dtype}")
-        if self.program is not None:
-            return self.program(ri)
-        return self._decode(to_device(ri, self.device))
+        input into the graph's static input and replays it.
+
+        The handle carries the batch's number as ``uwspr_request``."""
+        n = self.batches
+        self.batches += 1
+        with span("decoder.submit", n):
+            ri = torch.as_tensor(ri)
+            if ri.dim() != 3 or ri.shape[1] != 2:
+                raise ValueError(f"ri must be (W, 2, fl), got "
+                                 f"{tuple(ri.shape)}")
+            if ri.dtype != torch.float32:
+                raise ValueError(f"ri must be float32, got {ri.dtype}")
+            if self.program is not None:
+                packed = self.program(ri)
+            else:
+                packed = self._decode(to_device(ri, self.device))
+        packed.uwspr_request = n
+        return packed
 
     def _decode(self, ri: torch.Tensor) -> torch.Tensor:
         """The batch program: (W, 2, fl) on the decoder's device -> the
-        packed output (full f32 products, no autograd)."""
+        packed output (full f32 products, no autograd), each stage after
+        its marker (ops/marks.py)."""
         with torch.no_grad(), exact_f32():
             pre = self.prefano(ri)
             if self.fano_mode == "host":
-                return self._pack_prefano(pre)
-            return self._pack(self._fano_select_batch(pre))
+                marks.mark("pack", ri)
+                packed = self._pack_prefano(pre)
+            else:
+                out = self._fano_select_batch(pre)
+                marks.mark("pack", ri)
+                packed = self._pack(out)
+            marks.mark("end", ri)
+            return packed
 
     def decode_ri_batch(self, ri: torch.Tensor | np.ndarray
                         ) -> DeviceDecoderOutput:
@@ -231,9 +260,10 @@ class DeviceDecoder:
         """A packed result of decode_windows_ri (any leading dims) -> typed
         output: unpacked, or in fano_mode "host" Fano-decoded on the host.
         Waits for the card to finish the batch."""
-        if self.fano_mode == "host":
-            return self.host_fano_assemble(packed)
-        return self.unpack_output(packed)
+        with span("decoder.fetch", getattr(packed, "uwspr_request", None)):
+            if self.fano_mode == "host":
+                return self.host_fano_assemble(packed)
+            return self.unpack_output(packed)
 
     def decode_batch(self, zs: np.ndarray) -> DeviceDecoderOutput:
         """(W, fl) complex windows -> batched output (leading axis W)."""
@@ -304,9 +334,11 @@ class DeviceDecoder:
         m = cfg.fft_size // 2
         cb0 = self._cols[0]
         stft_impl = "fft" if cfg.stft_impl == "auto" else cfg.stft_impl
+        marks.mark("stft", z_all)
         ps = stft_power_core(z_all, n_ffts=cfg.n_ffts, size=cfg.fft_size,
                              hop=cfg.spb // 2, impl=stft_impl,
                              col_window=self._cols, consts=self._stft_consts)
+        marks.mark("coarse", z_all)
         sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=m, col0=cb0)
         valid, if0, snr = self._peaks(sm)
         # conv for narrowband, the im2col GEMM for wideband; bf16 operands
@@ -330,6 +362,7 @@ class DeviceDecoder:
         grid = cg["grid"]
         W, C = grid.shape[:2]
         Mdim = grid.shape[-1]
+        marks.mark("select", grid)
         best, best_idx = select_best(grid.reshape((W * C,) + grid.shape[2:]),
                                      self.state["is_nl"],
                                      threshold=float(cfg.threshold))
@@ -366,6 +399,7 @@ class DeviceDecoder:
         +/-0.5) over the compacted lanes (jit_decoder.py:412-502)."""
         dcfg = self.config.demod
         dev = st["freq"].device
+        marks.mark("refine", st["freq"])
         valid = st["valid"]
         mode, slm_params = st["mode"], st["slm_params"]
         C = valid.shape[0]
@@ -422,6 +456,7 @@ class DeviceDecoder:
         deinterleave (jit_decoder.py:504-570)."""
         dcfg = self.config.demod
         dev = st["freq"].device
+        marks.mark("prefano_tail", st["freq"])
         C = st["shift"].shape[0]
         cidx = torch.arange(C, device=dev)
 
@@ -478,6 +513,7 @@ class DeviceDecoder:
         dcfg = self.config.demod
         z_all = torch.complex(ri[:, 0], ri[:, 1])
         coarse = self._coarse_stage(z_all)
+        marks.mark("compact", z_all)
         if dcfg.cand_compact_lanes > 0:
             return self._compact_cand_pre(z_all, coarse)
         # every lane of every window (the vmap of _prefano,
@@ -668,6 +704,7 @@ class DeviceDecoder:
         overflow = pre.get("refine_overflow",
                            torch.zeros(W, dtype=torch.int64, device=dev))
 
+        marks.mark("fano1", gate)
         succ0, data0, over0 = self._fano_phase(gate[:, :, 0], deint[:, :, 0])
         overflow = overflow + over0
         if J == 1:
@@ -676,6 +713,7 @@ class DeviceDecoder:
             payload = data0[:, :, :7]
         else:
             R = C * (J - 1)
+            marks.mark("fano2", gate)
             gate_rest = (gate[:, :, 1:] & ~succ0[:, :, None]).reshape(W, R)
             succr, datar, over2 = self._fano_phase(
                 gate_rest, deint[:, :, 1:].reshape(W, R, 162))
@@ -689,6 +727,7 @@ class DeviceDecoder:
             payload = data[widx, cidx, jbest][..., :7]
         osd = torch.zeros((W, C), dtype=torch.int64, device=dev)
         if self._osd_G is not None:
+            marks.mark("osd", gate)
             any_success, payload, jbest, osd, dropped = self._osd_rescue(
                 pre, any_success, payload, jbest)
             overflow = overflow + dropped.sum(dim=1)
@@ -926,29 +965,30 @@ class DeviceDecoder:
         """One window's output -> pipeline.decoder.Spot list (host unpack).
         An OSD candidate whose payload fails protocol unpacking is dropped
         (jit_decoder.py:1244-1275)."""
-        spots = []
-        for c in np.flatnonzero(out.success):
-            payload = bytes(out.payload[c])
-            u = unpack_message(payload, hashtable)
-            if u is None and int(out.osd[c]) > 0:
-                continue
-            spots.append(Spot(
-                message=u.text if u is not None else "",
-                payload=payload,
-                freq=float(out.freq[c]),
-                snr=float(out.snr[c]),
-                sync=float(out.sync[c]),
-                shift=int(out.shift[c]),
-                drift=float(out.drift[c]),
-                mode=int(out.mode[c]),
-                slm_params=tuple(np.asarray(out.slm_params[c], float))
-                if int(out.mode[c]) else (),
-                candidate=int(c),
-                jiggle=int(out.jiggle[c]),
-                unpacked=u,
-                osd=int(out.osd[c]),
-            ))
-        return spots
+        with span("decoder.spots"):
+            spots = []
+            for c in np.flatnonzero(out.success):
+                payload = bytes(out.payload[c])
+                u = unpack_message(payload, hashtable)
+                if u is None and int(out.osd[c]) > 0:
+                    continue
+                spots.append(Spot(
+                    message=u.text if u is not None else "",
+                    payload=payload,
+                    freq=float(out.freq[c]),
+                    snr=float(out.snr[c]),
+                    sync=float(out.sync[c]),
+                    shift=int(out.shift[c]),
+                    drift=float(out.drift[c]),
+                    mode=int(out.mode[c]),
+                    slm_params=tuple(np.asarray(out.slm_params[c], float))
+                    if int(out.mode[c]) else (),
+                    candidate=int(c),
+                    jiggle=int(out.jiggle[c]),
+                    unpacked=u,
+                    osd=int(out.osd[c]),
+                ))
+            return spots
 
 
 def _offsets_f32(step: float, device) -> torch.Tensor:

@@ -34,6 +34,12 @@ turns into typed output, and ``fetch`` waits. Holding several handles
 overlaps the hops' copies, decodes and fetches, the device OSD
 (osd_depth > 0) included.
 
+Tracing: while a profiler runs, ``push_hop`` is the host span
+``uwspr.ring.push_hop`` and ``RingServe.push`` the span ``uwspr.ring.push``
+with ``uwspr.ring.buffer`` (the host buffer) and ``uwspr.ring.results``
+(the per-channel results) inside it (utils/profiler.py). ``hops`` counts
+the decoded hops; a hop's number tags its spans.
+
 Window alignment: the host windower emits the first fl samples once
 ceil(fl/hop) hops arrived; the ring always decodes the newest fl samples,
 so its windows start ceil(fl/hop)*hop - fl = 2250 samples later, and it
@@ -53,6 +59,7 @@ from uwspr_tpu_torch.device import resolve_device, to_device
 from uwspr_tpu_torch.pipeline.device_decoder import (DeviceDecoder,
                                                      DeviceDecoderOutput)
 from uwspr_tpu_torch.pipeline.stream import StreamStats, device_result
+from uwspr_tpu_torch.utils.profiler import span
 
 INGEST_DTYPES = ("f32", "int16")
 
@@ -107,6 +114,7 @@ class DeviceRingDecoder:
                        for _ in range(2)]
         self._cur = 0
         self._filled = 0
+        self.hops = 0           # decoded hops so far
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
 
@@ -184,6 +192,11 @@ class DeviceRingDecoder:
         self._cur = 1 - self._cur
         return nxt
 
+    def next_hop(self) -> int | None:
+        """The number the next pushed hop decodes under, or None while it
+        would only fill the ring."""
+        return self.hops if self._filled + self.hop >= self.fl else None
+
     def push_hop(self, block) -> torch.Tensor | None:
         """Ingest one hop of new samples for every channel.
 
@@ -194,15 +207,17 @@ class DeviceRingDecoder:
         full window, else None (prefill). Returns once the hop's copy,
         shift and decode are queued, without waiting for the card; ``fetch``
         waits for the handle."""
-        if isinstance(block, StagedBlock):
-            b, s = self._staged(block)
-        else:
-            b, s = self._upload(*self._as_blocks(block))
-        ring = self._append(b, s)
-        self._filled += self.hop
-        if self._filled < self.fl:
-            return None
-        return self.decoder.decode_windows_ri(ring)
+        with span("ring.push_hop", self.next_hop()):
+            if isinstance(block, StagedBlock):
+                b, s = self._staged(block)
+            else:
+                b, s = self._upload(*self._as_blocks(block))
+            ring = self._append(b, s)
+            self._filled += self.hop
+            if self._filled < self.fl:
+                return None
+            self.hops += 1
+            return self.decoder.decode_windows_ri(ring)
 
     def push_hops(self, blocks) -> torch.Tensor:
         """Ingest K hops at once with one host-to-device copy, decoding
@@ -221,6 +236,7 @@ class DeviceRingDecoder:
             ring = self._append(b[k], None if s is None else s[k])
             outs.append(self.decoder.decode_windows_ri(ring))
         self._filled += len(staged) * self.hop
+        self.hops += len(staged)
         return torch.stack(outs)
 
     # -- results ------------------------------------------------------------
@@ -279,25 +295,35 @@ class RingServe:
         self._buf = np.zeros((n_channels, 0), np.complex64)
 
     def push(self, samples: np.ndarray):
+        """Buffer ``samples`` and decode every whole hop they complete. The
+        span ``uwspr.ring.push`` carries the number of the push's first
+        hop when that hop decodes."""
         samples = np.atleast_2d(np.asarray(samples))
-        self._buf = np.concatenate(
-            [self._buf, samples.astype(np.complex64)], axis=1)
-        hop = self.ring.hop
-        results = []
-        while self._buf.shape[1] >= hop:
-            t0 = time.perf_counter()
-            h = self.ring.push_hop(self._buf[:, :hop])
-            self._buf = self._buf[:, hop:]
-            if h is None:
-                continue
-            out = self.ring.fetch(h)
-            self.stats.decode_seconds += time.perf_counter() - t0
-            for c in range(self.ring.n_channels):
-                r = device_result(self.ring.decoder, out.window(c),
-                                  self.hashtable)
-                self.stats.add(r)
-                results.append((c, r))
-        return results
+        ring, hop = self.ring, self.ring.hop
+        first = (ring.next_hop()
+                 if self._buf.shape[1] + samples.shape[1] >= hop else None)
+        with span("ring.push", first):
+            with span("ring.buffer"):
+                self._buf = np.concatenate(
+                    [self._buf, samples.astype(np.complex64)], axis=1)
+            results = []
+            while self._buf.shape[1] >= hop:
+                t0 = time.perf_counter()
+                n = ring.next_hop()
+                with span("ring.buffer"):
+                    block, self._buf = self._buf[:, :hop], self._buf[:, hop:]
+                h = ring.push_hop(block)
+                if h is None:
+                    continue
+                out = ring.fetch(h)
+                self.stats.decode_seconds += time.perf_counter() - t0
+                with span("ring.results", n):
+                    for c in range(ring.n_channels):
+                        r = device_result(ring.decoder, out.window(c),
+                                          self.hashtable)
+                        self.stats.add(r)
+                        results.append((c, r))
+            return results
 
     def flush(self):
         return []

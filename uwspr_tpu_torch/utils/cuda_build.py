@@ -63,6 +63,7 @@ _SIGNATURES = {
     "uwspr_stft_power": [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
                          _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_int,
                          _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p],
+    "uwspr_mark": [_C.c_int, _C.c_void_p],
 }
 
 _lock = threading.Lock()

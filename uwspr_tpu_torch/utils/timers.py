@@ -4,7 +4,11 @@ tfano/ttotal, lib/WSPR_unpacker_impl.cc:68-74) and its ad-hoc wall-clock
 prints (lib/sliding_window_stream_to_pdu_impl.cc:79-92).
 
 The port's own copy of uwspr_tpu/utils/timers.py (imports pointed inside
-uwspr_tpu_torch), held equal to it by tests/test_torch_copies.py.
+uwspr_tpu_torch) but for the module-level ``GLOBAL_TIMERS``, which nothing
+of the port reads; held equal to it by tests/test_torch_copies.py. The
+host engine and scripts/torch_stages.py own their StageTimers; the device
+path's stages are profiler spans and marker kernels (utils/profiler.py,
+ops/marks.py).
 """
 
 from __future__ import annotations
@@ -44,6 +48,4 @@ class StageTimers:
         self.counts.clear()
 
 
-GLOBAL_TIMERS = StageTimers()
-
-__all__ = ["StageTimers", "GLOBAL_TIMERS"]
+__all__ = ["StageTimers"]

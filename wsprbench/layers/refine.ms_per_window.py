@@ -1,0 +1,18 @@
+"""refine.ms_per_window: device time of the kernels of the decode's
+``compact``, ``refine`` and ``prefano_tail`` stages (the candidate
+compaction, the phase A/B probes, the fine grid, soft symbols, gates and
+deinterleave), between their marker kernels, over the channel-windows of
+the traced requests."""
+
+import importlib.util
+import pathlib
+
+_spec = importlib.util.spec_from_file_location(
+    "wsprbench_spans", pathlib.Path(__file__).with_name("_spans.py"))
+_spans = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_spans)
+
+
+def read(r, view):
+    return _spans.stages_ms_per_window(
+        view, ("compact", "refine", "prefano_tail"))
