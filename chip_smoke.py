@@ -125,10 +125,21 @@ Phases, each raising on failure (nothing is caught):
    the least time the card could take: the larger of its bytes over the
    HBM rate and its operations over their peak rate (H100 SXM data sheet,
    700 W), and for Fano the longest lane's forward looks times one
-   shared-memory round trip. Fano is timed at the slice's two calls (phase
-   1: the jiggle-0 lane of every candidate, active the gate; phase 2: the
-   other jiggles, active where the gate is and phase 1 failed; that call's
-   bound also counts its bytes). Selection is also timed at the host
+   shared-memory round trip. The main path's Fano, fano_decode_jiggles
+   (one launch over every gated jiggle lane, a later jiggle stopped once a
+   lower one of its candidate decodes), is timed at the slice's own
+   (1664, 17, 162) call against the plain version over the same lanes
+   (every lane it did not stop bit-exact, the first success, its jiggle
+   and its bytes equal; its bound also counts its bytes) and at maxcycles
+   10,000 on a 64-candidate block with timeouts at every jiggle against
+   the two fano_decode_batch launches it replaces (held to the native
+   decoder the same way), as an entry of its own whose launches are
+   counted under fano_decode. The hookless fano_decode_batch kernel,
+   which the capped per-window path launches, is timed at the slice's two
+   calls of that path (phase 1: the jiggle-0 lane of every candidate,
+   active the gate; phase 2: the other jiggles, active where the gate is
+   and phase 1 failed; that call's bound also counts its bytes).
+   Selection is also timed at the host
    engine's
    (200, 5, 26, 126) grid of the scene's first window, and Fano at
    maxcycles 10,000 on a block of 128 lanes of uniform noise that all run
@@ -4129,6 +4140,172 @@ def timing_fano(dec, ri_c, card, sm_mhz):
     return e
 
 
+def jiggle_block(rng, N, J):
+    """(N, J, 162) lanes and (N, J) gate of a hop with timeouts at the full
+    budget (tests/test_torch_fano_jiggles.py's scene): a third of the
+    candidates decode at jiggle 0 and hold codewords at three later
+    jiggles (speculative lanes), a third hold them at three later jiggles
+    only, a third none; every other lane is uniform noise, which runs the
+    budget; about 70 % of the lanes gated, jiggle 0 of the first third
+    always."""
+    sym = fano_lanes(rng, N * J, None).reshape(N, J, 162)
+    gate = rng.random((N, J)) < 0.7
+    for n in range(N):
+        if n % 3 == 0:
+            gate[n, 0] = True
+            sym[n, 0] = fano_lanes(rng, 1, 10.0)[0]
+        if n % 3 < 2:
+            js = rng.choice(np.arange(1, J), size=3, replace=False)
+            sym[n, js] = fano_lanes(rng, 3, 10.0)
+    return sym, gate
+
+
+def jiggles_equal(k, ref, gate, what):
+    """Hold a fano_decode_jiggles result ``k`` ((N, J[, 10]) by field) to
+    ``ref``, the same N*J lanes walked with no stop (the plain version, or
+    the native decoder on the gated lanes): every gated lane that ``k``
+    did not stop bit-exact; every inactive lane to the kernel's contract
+    (no success, data, metric and maxnp 0, cycles 1); every stopped lane
+    a gated jiggle >= 1 without success whose candidate ``ref`` decodes at
+    a lower gated jiggle; and the candidates' first success, its jiggle
+    and its bytes equal. Returns (the largest absolute difference over
+    the integer fields of the lanes compared, the stopped lanes)."""
+    from uwspr_tpu_torch.harness.replay import FANO_FIELDS
+    g = np.asarray(gate.cpu() if hasattr(gate, "cpu") else gate)
+    N, J = g.shape
+
+    def flat(v, f):
+        v = np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+        return v.reshape((N * J, 10) if f == "data" else (N * J,))
+    kk = {f: flat(k[f], f) for f in FANO_FIELDS}
+    rr = {f: flat(ref[f], f) for f in FANO_FIELDS}
+    a = g.reshape(-1)
+    stopped = flat(k["aborted"], "aborted").astype(bool)
+    walked = a & ~stopped
+    err = fano_equal({f: v[walked] for f, v in kk.items()},
+                     {f: v[walked].astype(kk[f].dtype)
+                      for f, v in rr.items()},
+                     f"{what}: lanes not stopped")
+    i = ~a
+    require(not kk["success"][i].any() and (kk["data"][i] == 0).all()
+            and (kk["metric"][i] == 0).all() and (kk["cycles"][i] == 1).all()
+            and (kk["maxnp"][i] == 0).all(),
+            f"fano {what}: inactive lanes break the contract")
+    ok = (a & rr["success"].astype(bool)).reshape(N, J)
+    n, j = np.divmod(np.flatnonzero(stopped), J)
+    lower = np.arange(J)[None, :] < j[:, None]
+    require(a[stopped].all() and (j >= 1).all()
+            and not kk["success"][stopped].any()
+            and (ok[n] & lower).any(axis=1).all(),
+            f"fano {what}: a stopped lane whose candidate decodes at no "
+            f"lower jiggle")
+    got = (kk["success"].astype(bool) & a).reshape(N, J)
+    for name, x, y in (("any success", got.any(1), ok.any(1)),
+                       ("first jiggle", got.argmax(1), ok.argmax(1))):
+        require(np.array_equal(x, y), f"fano {what}: {name} differs")
+    jb = ok.argmax(1)
+    require(np.array_equal(kk["data"].reshape(N, J, -1)[np.arange(N), jb],
+                           rr["data"].reshape(N, J, -1)[np.arange(N), jb]),
+            f"fano {what}: first success's bytes differ")
+    return err, int(stopped.sum())
+
+
+def timing_fano_jiggles(dec, ri_c, card, sm_mhz):
+    """fano_decode_jiggles, the main path's Fano (every compact path: the
+    slice, the ring, the wideband batches, the mesh): timed at the slice's
+    own (W*C, J, 162) call against fano_decode_batch_plain over the same
+    lanes, and at maxcycles 10,000 on a block with timeouts at every
+    jiggle against the two fano_decode_batch launches it replaces (held
+    to the native decoder: the plain version would take hours there)."""
+    import torch
+
+    from uwspr_tpu_torch.fec import fano
+    from uwspr_tpu_torch.fec.host import fano_decode_batch_host
+    from uwspr_tpu_torch.harness.replay import FANO_FIELDS
+    with torch.no_grad():
+        pre = dec.prefano(ri_c)
+    W, C, J = pre["gate"].shape
+    gate = pre["gate"].reshape(W * C, J)
+    sym = pre["deint"].reshape(W * C, J, 162)
+    met = dec.state["mettab"]
+    mc = dec.config.demod.maxcycles
+    ms, turns, outs = time_turns(
+        [("plain", lambda: fano.fano_decode_batch_plain(
+            sym.reshape(-1, 162), met, gate.reshape(-1), maxcycles=mc)),
+         ("kernel", lambda: fano.fano_decode_jiggles(sym, gate, met,
+                                                     maxcycles=mc))],
+        {"plain": 2, "kernel": 50})
+    err, n_stop = jiggles_equal(outs["kernel"], outs["plain"], gate,
+                                f"jiggles kernel vs plain on the slice's "
+                                f"call maxcycles={mc}")
+    N, act = W * C * J, int(gate.sum())
+    cyc = outs["kernel"]["cycles"][gate].to(torch.int64)
+    csum, cmax = int(cyc.sum()), int(cyc.max())
+    # each lane's symbols, gate and order index read, its 24 result bytes
+    # written
+    tb = (N * (162 + 1 + 4 + 24) + met.numel() * 4) / HBM_BYTES_S * 1e3
+    tl = cmax * FANO_STEP_CLOCKS / (sm_mhz * 1e6) * 1e3
+    bnd = (tb, "bytes", "HBM") if tb >= tl else (tl, "operations", "latency")
+    e = entry("fano_decode_jiggles", "fano.cu",
+              "uwspr_tpu/pipeline/jit_decoder.py:928",
+              [W * C, J, 162], ms["kernel"], ms["plain"], bnd, None, None,
+              err)
+    e.update(cycles_sum=csum, cycles_max=cmax, active=act, stopped=n_stop,
+             launches_counted_as="fano_decode")
+    log(f"[timing] {card}: fano_decode_jiggles on the slice's call "
+        f"({W * C} x {J} lanes, {act} gated, {n_stop} stopped, maxcycles="
+        f"{mc}; cycles sum {csum}, max {cmax}): kernel {ms['kernel']:.4f} "
+        f"ms, plain {ms['plain']:.4f} ms, library none (a sequential "
+        f"search); bound {e['bound_ms']:.4f} ms (by {e['bound_by']}), "
+        f"{100 * e['bound_share']:.1f} % of it (turns {fmt_turns(turns)}); "
+        f"lanes not stopped == plain, bit-exact, first success equal")
+    # a hop-like block at the full budget, against the two launches
+    rng = np.random.default_rng(29)
+    NB, JB = 64, J
+    lanes, g_np = jiggle_block(rng, NB, JB)
+    s, g = torch.from_numpy(lanes).cuda(), torch.from_numpy(g_np).cuda()
+
+    def two_launches():
+        p1 = fano.fano_decode_batch(s[:, 0], met, g[:, 0], maxcycles=mc)
+        rest = g[:, 1:] & ~(p1["success"] & g[:, 0])[:, None]
+        return p1, fano.fano_decode_batch(s[:, 1:].reshape(-1, 162), met,
+                                          rest.reshape(-1), maxcycles=mc)
+    ms, turns, outs = time_turns(
+        [("two launches", two_launches),
+         ("kernel", lambda: fano.fano_decode_jiggles(s, g, met,
+                                                     maxcycles=mc))],
+        {"two launches": 3, "kernel": 3})
+    t0 = time.perf_counter()
+    nat = dict(zip(FANO_FIELDS, fano_decode_batch_host(
+        lanes.reshape(-1, 162), g_np.reshape(-1), backend="native",
+        device="cpu", mettab=met.cpu().numpy(), maxcycles=mc)))
+    t_nat = time.perf_counter() - t0
+    e2, n_stop = jiggles_equal(outs["kernel"], nat, g_np,
+                               "jiggles kernel vs native on the hop-like "
+                               "block")
+    err = max(err, e2)
+    cyc = outs["kernel"]["cycles"][g].to(torch.int64)
+    csum, cmax = int(cyc.sum()), int(cyc.max())
+    timeouts = int((nat["cycles"][g_np.reshape(-1)] >= mc * 81).sum())
+    bms = cmax * FANO_STEP_CLOCKS / (sm_mhz * 1e6) * 1e3
+    e["other_shapes"] = {"hop-like block": {
+        "shape": [NB, JB, 162], "active": int(g_np.sum()),
+        "stopped": n_stop, "timeouts_unstopped": timeouts,
+        "ms": ms["kernel"], "two_launches_ms": ms["two launches"],
+        "plain_ms": None, "bound_ms": bms, "library_ms": None,
+        "cycles_sum": csum, "cycles_max": cmax}}
+    e["max_abs_err"] = err
+    log(f"[timing] {card}: fano_decode_jiggles on a hop-like block ({NB} x "
+        f"{JB} lanes, {int(g_np.sum())} gated, {timeouts} full-budget "
+        f"timeouts without a stop, {n_stop} stopped, maxcycles={mc}; cycles"
+        f" sum {csum}, max {cmax}): kernel {ms['kernel']:.4f} ms, the two "
+        f"fano_decode_batch launches {ms['two launches']:.4f} ms, plain not"
+        f" timed (hours); bound {bms:.4f} ms, {100 * bms / ms['kernel']:.1f}"
+        f" % of it (turns {fmt_turns(turns)}); lanes not stopped == native "
+        f"fano_native.cc ({t_nat:.1f} s), bit-exact, first success equal")
+    return e
+
+
 def probe_library_inputs(z_ri, lags, freqs, dsym):
     """The operands of probe_powers_plain's complex product (the derotated
     windows and the lag-masked tone banks), built once: the library
@@ -4289,6 +4466,7 @@ def main() -> int:
 
     sels = timing_select(dec, scene, hdec, ri, card, wide)
     fan = timing_fano(dec, ri_c, card, sm_mhz)
+    jig = timing_fano_jiggles(dec, ri_c, card, sm_mhz)
     probes = timing_probe(card, z_ri, cases)
     stfts = timing_stft(card, z, kw, stft_inputs, wide)
     runtimes = timing_runtimes(card, stream, ring, htod)
@@ -4349,7 +4527,8 @@ def main() -> int:
     print(json.dumps({"scaling": scale}), flush=True)
     print(json.dumps({"async": asyn}), flush=True)
     print(json.dumps({"captured": capt}), flush=True)
-    print(json.dumps({"kernels": [sel, fan, prb, stf, osd_e]}), flush=True)
+    print(json.dumps({"kernels": [sel, fan, jig, prb, stf, osd_e]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

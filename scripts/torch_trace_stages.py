@@ -27,7 +27,13 @@ and prints a JSON line:
 - ``latency_ms``: the median request latency of the traced requests and
   of the others of the same window (what tracing adds to a request), and
   the window's end-to-end metrics;
-- ``span_check_ns``: the host cost of one span with no profiler running.
+- ``span_check_ns``: the host cost of one span with no profiler running;
+- ``fano_tally``: ``DeviceDecoder.fano_tally`` summed over the run's
+  decoders (warm-up and untimed requests included): the decodes that ran
+  the one-launch Fano over every jiggle, the speculative lanes (gated
+  jiggles >= 1 of candidates whose jiggle 0 decoded, which two phases
+  would not walk), how many of them stopped early and the forward looks
+  they spent, the last three also per decode.
 
 With ``--out`` the JSON is also appended to DIR/trace_stages.jsonl.
 """
@@ -35,6 +41,7 @@ With ``--out`` the JSON is also appended to DIR/trace_stages.jsonl.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import re
@@ -131,6 +138,38 @@ def span_check_ns(reps: int = 200_000) -> float:
     return (time.perf_counter() - t0) / reps * 1e9
 
 
+@contextlib.contextmanager
+def fano_tallies():
+    """Yields a list that gathers the ``fano_counts`` tensor of every
+    DeviceDecoder built inside the block (the tensor alone is kept: the
+    decoder is freed as the run frees it). The harness's drivers keep no
+    handle on the decoder they build, so the block wraps the class's
+    constructor, and puts it back on leaving."""
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    kept, init = [], DeviceDecoder.__init__
+
+    def keeping(self, *a, **k):
+        init(self, *a, **k)
+        kept.append(self.fano_counts)
+    DeviceDecoder.__init__ = keeping
+    try:
+        yield kept
+    finally:
+        DeviceDecoder.__init__ = init
+
+
+def fano_tally(kept: list) -> dict:
+    """The tallies of ``fano_tallies`` summed, and per decode."""
+    import torch
+    from uwspr_tpu_torch.pipeline.device_decoder import FANO_TALLY
+    total = dict(zip(FANO_TALLY, map(int, sum(
+        (t.cpu() for t in kept),
+        torch.zeros(len(FANO_TALLY), dtype=torch.int64)))))
+    n = max(total["decodes"], 1)
+    return {**total, **{f"{k}_per_decode": v / n for k, v in total.items()
+                        if k != "decodes"}}
+
+
 def main(argv=None) -> int:
     from wsprbench import run as R
     t_start = R.process_start()
@@ -141,8 +180,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     R.set_build_env(R.ROOT)
-    res = R.run_cell(R.ROOT, a.workload, a.seed, a.seconds, 1,
-                     t_start=t_start)
+    with fano_tallies() as tallies:
+        res = R.run_cell(R.ROOT, a.workload, a.seed, a.seconds, 1,
+                         t_start=t_start)
     r = R.LAST_RUN
     view = r.tracer.view
     stages, marks_us = stage_split(view)
@@ -169,6 +209,7 @@ def main(argv=None) -> int:
             "traced_requests": len(traced),
             "end_to_end": R.end_to_end(r, t_start)},
         "span_check_ns": span_check_ns(),
+        "fano_tally": fano_tally(tallies),
     }
     line = json.dumps(out)
     print(line, flush=True)

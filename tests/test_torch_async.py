@@ -14,11 +14,18 @@ handle, in any config.
   the device OSD at osd_depth 2 and 4 (the JAX program's fixed shape:
   osd_max_lanes lanes a batch, the failed mask as the kernel's active)
   and the ring (a numpy hop, a staged hop, push_hops) decode on the CPU.
-- The never-drop Fano, now one call per phase over every lane with
-  ``active`` the gate, against the JAX package's chunked ``_compact_fano``
-  at fano_compact_lanes 1, 3 and 64 (more gated lanes than the first two
-  caps): the packed (W, C, 23) output bit-identical. The JAX side runs its
-  Fano as the Pallas kernel in interpret mode.
+- The never-drop Fano, now one call over every jiggle of every lane with
+  ``active`` the gate (the JAX program's two phases, jiggle 0 and then the
+  other jiggles of the candidates it did not decode, give the same first
+  success), against the JAX package's chunked ``_compact_fano`` at
+  fano_compact_lanes 1, 3 and 64 (more gated lanes than the first two
+  caps), and on scenes where gated later jiggles of a decoded candidate
+  hold codewords of their own, where only later jiggles decode, and where
+  nothing decodes: the packed (W, C, 23) output bit-identical, and the
+  decoder's tally of speculative lanes the scalar oracle's. The capped
+  per-window Fano (fano_compact_lanes 0) stays two calls, equal to the
+  JAX program's. The JAX side runs its Fano as the Pallas kernel in
+  interpret mode.
 
 Toy budgets (3 jiggles, a Fano budget of 4 cycles a bit) keep the plain
 Fano short on lanes that never decode.
@@ -34,6 +41,7 @@ import pytest
 import torch
 
 from test_torch_copies import jax_config
+from uwspr_tpu.fec.fano_ref import fano_decode
 from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
 from uwspr_tpu_torch.config import (CoarseConfig, DemodConfig,
                                     PipelineConfig, with_serving_defaults)
@@ -86,7 +94,8 @@ def no_host_reads(monkeypatch):
                 inside[0] -= 1
         return call
     with monkeypatch.context() as m:
-        for name in ("select_best", "fano_decode_batch", "osd_decode_lanes"):
+        for name in ("select_best", "fano_decode_batch",
+                     "fano_decode_jiggles", "osd_decode_lanes"):
             m.setattr(device_decoder, name,
                       allowed(getattr(device_decoder, name)))
         for name in HOST_READS:
@@ -153,20 +162,36 @@ def test_ring_reads_nothing_on_the_host(monkeypatch):
 # ---------------------------------------------------- one-call Fano phases
 
 W, C, J = 2, 3, 3
+BUDGET = TOY.maxcycles * 81
+# lanes (window, candidate, jiggle) that hold a codeword, by scene; every
+# other lane is noise that never decodes at the toy budget
+SCENES = {
+    # jiggle 0 of one candidate a window decodes (the two phases then
+    # skip its other jiggles)
+    "default": [(0, 0, 0), (1, 1, 0)],
+    # jiggle 0 decodes and gated later jiggles of the same candidate hold
+    # other codewords: speculative lanes that decode, kept out
+    "speculative": [(0, 0, 0), (0, 0, 1), (0, 0, 2), (1, 1, 0), (1, 1, 2)],
+    # jiggle 0 fails and jiggles 1 and 2 both decode: the first is kept;
+    # candidate C - 1 decodes at jiggle 2 only, its jiggle 1 not gated
+    "later_jiggles": [(0, 1, 1), (0, 1, 2), (1, 0, 1), (1, 0, 2),
+                      (1, 2, 1), (1, 2, 2)],
+    "none": [],
+}
 
 
-def fano_scene(seed=7):
+def fano_scene(seed=7, decodable=SCENES["default"]):
     """Fields of a (W, C, J) batch as _fano_select_batch takes them: every
-    lane gated but one a window; the jiggle-0 lanes of one candidate a
-    window decodable (phase 2 then skips its jiggles), the other lanes
+    lane gated but jiggle 1 of the last candidate a window; the
+    ``decodable`` lanes each hold a codeword of its own, the other lanes
     noise that never decodes at the toy budget."""
     rng = np.random.default_rng(seed)
     deint = rng.integers(0, 256, size=(W, C, J, 162)).astype(np.uint8)
-    for w in range(W):
+    for w, c, j in decodable:
         bits = rng.integers(0, 2, size=50).astype(np.uint8)
         coded = encode_bits(np.concatenate([bits, np.zeros(31, np.uint8)]))
         soft = np.where(coded == 1, 178.0, 78.0) + rng.normal(0, 8, 162)
-        deint[w, w, 0] = np.clip(soft, 0, 255).astype(np.uint8)
+        deint[w, c, j] = np.clip(soft, 0, 255).astype(np.uint8)
     gate = np.ones((W, C, J), bool)
     gate[:, C - 1, 1] = False
     return {
@@ -184,25 +209,116 @@ def fano_scene(seed=7):
     }
 
 
+def jax_packed(cfg, pre):
+    """The JAX program's _fano_select_batch on ``pre``, packed, its Fano
+    the Pallas kernel in interpret mode."""
+    jcfg = jax_config(cfg)
+    jcfg = dc.replace(jcfg, demod=dc.replace(jcfg.demod, fano_impl="pallas"))
+    jdec = JaxDecoder(jcfg)
+    jpre = {k: jnp.asarray(v) for k, v in pre.items()}
+    return np.asarray(jax.jit(
+        lambda p: jdec._pack(jdec._fano_select_batch(p)))(jpre))
+
+
+def port_packed(cfg, pre):
+    """(the port's packed _fano_select_batch on ``pre`` on the CPU, its
+    Fano calls, its decoder)."""
+    tdec = DeviceDecoder(cfg, device="cpu")
+    fano.reset_counters()
+    got = tdec._pack(tdec._fano_select_batch(
+        {k: torch.from_numpy(v) for k, v in pre.items()})).numpy()
+    return got, fano.PLAIN_CALLS, tdec
+
+
+def want_tally(pre):
+    """The fano_tally of one decode of ``pre`` on the CPU, from the JAX
+    package's scalar oracle: the gated jiggles >= 1 of candidates whose
+    jiggle 0 decodes, none stopped (the plain version walks every lane),
+    and their forward looks."""
+    lanes, looks = 0, 0
+    for w in range(W):
+        for c in range(C):
+            if not (pre["gate"][w, c, 0] and fano_decode(
+                    pre["deint"][w, c, 0], maxcycles=TOY.maxcycles).success):
+                continue
+            for j in range(1, J):
+                if pre["gate"][w, c, j]:
+                    r = fano_decode(pre["deint"][w, c, j],
+                                    maxcycles=TOY.maxcycles)
+                    lanes += 1
+                    looks += min(r.cycles - 1, BUDGET)
+    return {"decodes": 1, "speculative_lanes": lanes,
+            "speculative_aborted": 0, "speculative_looks": looks}
+
+
 @pytest.mark.parametrize("cap", [1, 3, 64])
 def test_one_call_fano_matches_jax_chunks(cap):
     pre = fano_scene()
     n_gated = pre["gate"][:, :, 0].sum()
     assert cap >= W * C * (J - 1) or n_gated > cap
     cfg = PipelineConfig(demod=dc.replace(TOY, fano_compact_lanes=cap))
-    jcfg = jax_config(cfg)
-    jcfg = dc.replace(jcfg, demod=dc.replace(jcfg.demod, fano_impl="pallas"))
-    jdec = JaxDecoder(jcfg)
-    jpre = {k: jnp.asarray(v) for k, v in pre.items()}
-    want = np.asarray(jax.jit(
-        lambda p: jdec._pack(jdec._fano_select_batch(p)))(jpre))
-
-    tdec = DeviceDecoder(cfg, device="cpu")
-    fano.reset_counters()
-    got = tdec._pack(tdec._fano_select_batch(
-        {k: torch.from_numpy(v) for k, v in pre.items()})).numpy()
-    assert fano.PLAIN_CALLS == 2            # one call a phase
+    want = jax_packed(cfg, pre)
+    got, calls, tdec = port_packed(cfg, pre)
+    assert calls == 1                       # every jiggle in one call
     assert got.shape == want.shape == (W, C, 23)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     out = tdec.unpack_output(got)
     assert out.success.sum() == W and (out.fano_overflow == 0).all()
+    assert tdec.fano_tally() == want_tally(pre) == {
+        "decodes": 1, "speculative_lanes": 4, "speculative_aborted": 0,
+        "speculative_looks": 4 * BUDGET}
+
+
+@pytest.mark.parametrize("scene", ["speculative", "later_jiggles", "none"])
+def test_one_call_fano_keeps_the_first_success(scene):
+    pre = fano_scene(11, SCENES[scene])
+    cfg = PipelineConfig(demod=dc.replace(TOY, fano_compact_lanes=3))
+    want = jax_packed(cfg, pre)
+    got, calls, tdec = port_packed(cfg, pre)
+    assert calls == 1
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    out = tdec.unpack_output(got)
+    first = {}
+    for w, c, j in SCENES[scene]:
+        if pre["gate"][w, c, j]:
+            first.setdefault((w, c), j)
+    assert {(w, c): int(out.jiggle[w, c]) for w, c in zip(
+        *np.nonzero(out.success))} == first
+    tally = tdec.fano_tally()
+    assert tally == want_tally(pre)
+    assert (tally["speculative_lanes"] > 0) == (scene == "speculative")
+
+
+@pytest.mark.parametrize("cap", [1, 64])
+def test_one_jiggle_fano_is_one_call(cap):
+    """J == 1 on the compact path: the one-call Fano over jiggle 0 alone
+    (no lane to stop) equals the JAX program's single phase."""
+    pre = fano_scene()
+    pre = {k: v[:, :, :1] if k in ("sync2", "gate", "deint") else v
+           for k, v in pre.items()}
+    cfg = PipelineConfig(demod=dc.replace(TOY, n_jiggles=1,
+                                          fano_compact_lanes=cap))
+    want = jax_packed(cfg, pre)
+    got, calls, tdec = port_packed(cfg, pre)
+    assert calls == 1
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert tdec.unpack_output(got).success.sum() == W
+    assert tdec.fano_tally() == {"decodes": 1, "speculative_lanes": 0,
+                                 "speculative_aborted": 0,
+                                 "speculative_looks": 0}
+
+
+def test_capped_fano_keeps_two_calls():
+    """fano_compact_lanes 0 (the per-window program): phase 2's lanes are
+    chosen under fano_max_lanes from what phase 1 left, so the two phases
+    stay two calls, equal to the JAX program's, and add nothing to the
+    tally."""
+    pre = fano_scene(11, SCENES["later_jiggles"])
+    cfg = PipelineConfig(demod=dc.replace(TOY, fano_max_lanes=2))
+    assert cfg.demod.fano_compact_lanes == 0
+    want = jax_packed(cfg, pre)
+    got, calls, tdec = port_packed(cfg, pre)
+    assert calls == 2
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert tdec.unpack_output(got).fano_overflow.sum() > 0
+    assert tdec.fano_tally() == dict.fromkeys(tdec.fano_tally(), 0)

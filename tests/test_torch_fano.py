@@ -7,7 +7,9 @@ oracle fec.fano_ref on the cases of tests/test_fano_pallas.py, plus
 inactive lanes. The CUDA kernel's own walk (the template fano_walk of
 csrc/fano_lane.cuh, on the metric table its prologue builds with
 node_metrics) is built with g++ and held against the native C++ decoder
-at the full budget and the plain version here; the kernel itself is
+at the full budget and the plain version here, also with an abort hook
+that never fires (bit-exact) and with one whose flag rises at a given
+look (the walk stops at the first poll that reads it); the kernel itself is
 checked on the card by the tests marked ``cuda``. The plain loop costs one Python step per primitive move, so the
 cases that time out keep maxcycles small.
 """
@@ -139,6 +141,41 @@ extern "C" void lane_decode(const unsigned char* sym, const unsigned char* act,
     out[4 * l + 2] = r.cycles; out[4 * l + 3] = r.maxnp;
   }
 }
+
+// The abort hook's flag raised from look `from` on: each issue reads it
+// as it stands after the looks done so far.
+struct FlagFrom {
+  static constexpr bool kPolls = true;
+  int32_t from;
+  bool seen;
+  void issue(int32_t looks) { seen = looks >= from; }
+  bool fired() const { return seen; }
+};
+extern "C" void lane_decode_hooked(const unsigned char* sym,
+                                   const int* mettab, int L, int delta,
+                                   int budget, int from,
+                                   int* out /* L x 5 */,
+                                   unsigned char* data) {
+  for (int l = 0; l < L; ++l) {
+    NodeMetrics met[kNbits];
+    NodeRec rec[kNodes] = {};
+    int32_t branch[kNodes];
+    for (int k = 0; k < kNbits; ++k) {
+      const unsigned char* p = sym + l * 162 + 2 * k;
+      met[k] = node_metrics(mettab, p[0], p[1]);
+    }
+    const LaneNodes nd{rec, branch, met};
+    FlagFrom flag{from, false};
+    flag.issue(0);                      // the caller's read before the walk
+    FanoLaneResult r = fano_walk(nd, delta, budget, true, data + l * 10,
+                                 flag);
+    out[5 * l] = r.success; out[5 * l + 1] = r.metric;
+    out[5 * l + 2] = r.cycles; out[5 * l + 3] = r.maxnp;
+    out[5 * l + 4] = r.aborted;
+  }
+}
+extern "C" int poll_looks() { return kPollLooks; }
+extern "C" int poll_lead() { return kPollLead; }
 """
 
 
@@ -154,7 +191,7 @@ def lane_lib(tmp_path_factory):
     return ctypes.CDLL(str(lib))
 
 
-def _lane_decode(lib, symbols, active, maxcycles):
+def _lane_decode(lib, symbols, active, maxcycles, budget=None):
     L = len(symbols)
     sym = np.ascontiguousarray(symbols, np.uint8)
     act = np.ascontiguousarray(active, np.uint8)
@@ -164,7 +201,8 @@ def _lane_decode(lib, symbols, active, maxcycles):
     lib.lane_decode(ctypes.c_void_p(sym.ctypes.data),
                     ctypes.c_void_p(act.ctypes.data),
                     ctypes.c_void_p(met.ctypes.data), ctypes.c_int(L),
-                    ctypes.c_int(60), ctypes.c_int(maxcycles * 81),
+                    ctypes.c_int(60),
+                    ctypes.c_int(budget or maxcycles * 81),
                     ctypes.c_void_p(out.ctypes.data),
                     ctypes.c_void_p(data.ctypes.data))
     return {"success": out[:, 0] != 0, "data": data, "metric": out[:, 1],
@@ -184,6 +222,71 @@ def test_kernel_lane_logic_matches_native_full_budget(lane_lib):
     assert (c == 810002).sum() >= 8          # the noise lanes time out
     for key, ref in zip(KEYS, (s, d, m, c, n)):
         np.testing.assert_array_equal(got[key], ref, err_msg=key)
+
+
+def _lane_decode_hooked(lib, symbols, maxcycles, flag_from):
+    L = len(symbols)
+    sym = np.ascontiguousarray(symbols, np.uint8)
+    met = np.ascontiguousarray(FANO_METTAB, np.int32)
+    out = np.zeros((L, 5), np.int32)
+    data = np.zeros((L, 10), np.uint8)
+    lib.lane_decode_hooked(ctypes.c_void_p(sym.ctypes.data),
+                           ctypes.c_void_p(met.ctypes.data), ctypes.c_int(L),
+                           ctypes.c_int(60), ctypes.c_int(maxcycles * 81),
+                           ctypes.c_int(flag_from),
+                           ctypes.c_void_p(out.ctypes.data),
+                           ctypes.c_void_p(data.ctypes.data))
+    return {"success": out[:, 0] != 0, "data": data, "metric": out[:, 1],
+            "cycles": out[:, 2], "maxnp": out[:, 3],
+            "aborted": out[:, 4] != 0}
+
+
+NEVER = 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("flag_from", [NEVER, 0, 1, 48, 49, 5000])
+def test_kernel_lane_abort_hook(lane_lib, flag_from):
+    """fano_walk with an abort hook whose flag rises after ``flag_from``
+    looks: a hook that never fires leaves the walk bit-identical to
+    fano_native.cc at the full budget; one that fires stops every lane
+    still walking at a test point within one poll interval plus the read's
+    lead of the flag, with success 0 and aborted 1, in the state the
+    hookless walk has after as many looks."""
+    period, lead = lane_lib.poll_looks(), lane_lib.poll_lead()
+    rng = np.random.default_rng(9)
+    lanes = np.concatenate([_lanes(rng, 8, sigma=10.0),
+                            _lanes(rng, 8, sigma=48.0),
+                            rng.integers(0, 256, (8, 162)).astype(np.uint8)])
+    got = _lane_decode_hooked(lane_lib, lanes, 10000, flag_from)
+    s, d, m, c, n = fano_decode_batch_native(lanes, FANO_METTAB,
+                                             maxcycles=10000)
+    looks = got["cycles"] - 1
+    walked = np.minimum(c - 1, 10000 * 81)   # looks of the hookless walk
+    stopped = got["aborted"]
+    # the first test that sees the flag: the one before the walk, or the
+    # one at a multiple of the period whose read, lead looks before it,
+    # came at or after flag_from; a lane still walking there stops
+    first = (0 if flag_from == 0 else
+             period * max(1, -(-(flag_from + lead) // period)))
+    if flag_from == NEVER:
+        assert not stopped.any()
+    else:
+        np.testing.assert_array_equal(stopped, walked > first)
+        assert (c == 810002).sum() >= 8 and stopped.sum() >= 8
+        assert (looks[stopped] == first).all()
+        assert flag_from <= first <= flag_from + period + lead - 1
+        assert first % period == 0
+        assert not got["success"][stopped].any()
+    keep = ~stopped
+    for key, ref in zip(KEYS, (s, d, m, c, n)):
+        np.testing.assert_array_equal(got[key][keep], ref[keep], err_msg=key)
+    if stopped.any():
+        # the state of the hookless walk after as many looks
+        ref = _lane_decode(lane_lib, lanes[stopped],
+                           np.ones(stopped.sum(), bool), 0, budget=first)
+        for key in ("data", "metric", "maxnp"):
+            np.testing.assert_array_equal(got[key][stopped], ref[key],
+                                          err_msg=key)
 
 
 def test_kernel_lane_logic_matches_plain(lane_lib):

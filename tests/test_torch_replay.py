@@ -3,7 +3,9 @@ selection and Fano calls to their oracles, on the CPU: the calls that the
 device engine's bound names make are recorded and the names restored; a
 faithful record replays clean; a record whose selection result, active
 Fano lane or inactive Fano lane breaks the oracle or the kernel's contract
-is reported; replays merge by summing.
+is reported; a recorded ``fano_decode_jiggles`` call replays clean, also
+with a lane stopped where a lower jiggle of its candidate decodes, and a
+stop anywhere else is reported; replays merge by summing.
 """
 
 import copy
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from uwspr_tpu_torch.coarse import search
+from uwspr_tpu_torch.fec import fano
 from uwspr_tpu_torch.harness import replay
 from uwspr_tpu_torch.pipeline import device_decoder as ddm
 from uwspr_tpu_torch.protocol.constants import FANO_METTAB
@@ -131,3 +134,66 @@ def test_merged_sums_the_counts():
     assert m["fano_timeouts"] == 2 and not m["ok"]
     assert m["failures"] == b["failures"]
     assert replay.merged([a, a])["ok"]
+
+
+@functools.cache
+def _record_jiggles():
+    """A KernelReplay of one fano_decode_jiggles call over (3, 3) lanes:
+    candidate 0 decodes at jiggles 0 and 2, candidate 1 at jiggle 1 only,
+    candidate 2 nowhere (noise, runs out of budget); jiggle 1 of candidate
+    2 not gated."""
+    rng = np.random.default_rng(6)
+    sym = rng.integers(0, 256, size=(3, 3, 162)).astype(np.uint8)
+    code = lanes(rng, 3)
+    sym[0, 0], sym[0, 2], sym[1, 1] = code
+    gate = torch.ones((3, 3), dtype=torch.bool)
+    gate[2, 1] = False
+    with replay.KernelReplay() as calls:
+        ddm.fano_decode_jiggles(torch.from_numpy(sym), gate,
+                                torch.from_numpy(FANO_METTAB),
+                                maxcycles=MAXCYCLES)
+    assert ddm.fano_decode_jiggles is fano.fano_decode_jiggles
+    return calls
+
+
+def record_jiggles():
+    calls, rec = replay.KernelReplay(), _record_jiggles()
+    calls.select, calls.fano, calls.probe = [], copy.deepcopy(rec.fano), []
+    return calls
+
+
+def _stop(calls, lane, success=False):
+    """Mark ``lane`` of the flat (candidate, jiggle) lanes as stopped early:
+    the cycles of a short walk, ``success`` as given."""
+    out = calls.fano[0][5]
+    out["aborted"][lane] = True
+    out["success"][lane] = success
+    out["cycles"][lane] = 65
+
+
+def test_a_jiggles_record_replays_clean():
+    calls = record_jiggles()
+    assert calls.fano[0][6] == 3             # the record keeps J
+    r = calls.replay()
+    assert r["ok"], r["failures"]
+    assert (r["fano_calls"], r["fano_active_lanes"]) == (1, 8)
+    # jiggle 2 of candidate 0 decodes, but jiggle 0 did first: stopping it
+    # keeps the first success, and the replay accepts it
+    _stop(calls, 2)
+    assert calls.replay()["ok"]
+
+
+@pytest.mark.parametrize("lane,success", [(4, False), (6, False),
+                                          (2, True)],
+                         ids=["no_lower_success", "jiggle_0",
+                              "success_kept"])
+def test_a_jiggles_record_with_a_wrong_stop_is_reported(lane, success):
+    """A stop where no lower jiggle of the candidate decodes (candidate 1,
+    jiggle 1), a stop of a jiggle 0 (candidate 2), and a stopped lane that
+    reports success (candidate 0, jiggle 2)."""
+    calls = record_jiggles()
+    _stop(calls, lane, success)
+    r = calls.replay()
+    assert not r["ok"]
+    assert any("stopped Fano lanes" in f for f in r["failures"]), \
+        r["failures"]

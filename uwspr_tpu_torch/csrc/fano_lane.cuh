@@ -15,6 +15,11 @@
 //     reference quirk, Fano.cc:250 / fano_pallas.py:189).
 // An inactive lane starts done, as fano_pallas.py:131-140 does: success 0,
 // data all zero, metric 0, cycles 1, maxnp 0.
+//
+// The walk may take an abort hook (`fano_walk` with an `Abort` argument),
+// which the batched jiggle kernel uses to stop a lane whose result can no
+// longer be kept. Without one (`NoAbort`) the walk is the one above, bit
+// for bit, and never polls.
 
 #pragma once
 
@@ -40,6 +45,23 @@ struct FanoLaneResult {
   int32_t metric;
   int32_t cycles;
   int32_t maxnp;
+  int32_t aborted;  // 1: the abort hook stopped the walk (success 0)
+};
+
+// The abort hook's schedule: the walk tests the hook every kPollLooks
+// forward looks, and issues each test's read kPollLead looks before it, so
+// that the read's latency never sits on the walk's chain of dependent
+// steps.
+constexpr int32_t kPollLooks = 64;
+constexpr int32_t kPollLead = 16;
+
+// An abort hook: `issue(looks)` starts a read of the abort flag after
+// `looks` forward looks and `fired()` tests the value the last issue read.
+// kPolls false: the walk never calls either and compiles as without one.
+struct NoAbort {
+  static constexpr bool kPolls = false;
+  UWSPR_HD void issue(int32_t) {}
+  UWSPR_HD bool fired() const { return false; }
 };
 
 UWSPR_HD int parity32(uint32_t v) {
@@ -149,6 +171,16 @@ UWSPR_HD void store_node(const LaneNodes& nd, int k, const Node& n) {
 // node; `budget` is maxcycles * kNbits. Writes kNbytes harvested bytes
 // (enc[7 + 8b] & 0xFF) to out_bytes.
 //
+// With an abort hook that polls, the caller issues the hook's first read
+// before the walk; the walk tests it before its first look (a lane stopped
+// there reports the inactive lane's fields), then after every kPollLooks
+// looks tests the read it issued kPollLead looks earlier. A flag raised
+// from look n on is seen by the first read issued at or after n, so the
+// walk stops after at most n + kPollLooks + kPollLead - 1 looks, at a test,
+// with success 0, aborted 1 and cycles = looks + 1. Until it fires the walk
+// is the hookless one: the polls only split its loop at the test and issue
+// points.
+//
 // The current node and the one before it live in registers, with the
 // metrics of the nodes at and after the current one, so a forward look
 // reads nothing, a move forward reads one metric entry a step ahead, and
@@ -156,16 +188,19 @@ UWSPR_HD void store_node(const LaneNodes& nd, int k, const Node& n) {
 // child a forward move would enter is computed before the threshold test,
 // beside it rather than after it. Every change to a node is written
 // through to `nd`.
+template <class Abort>
 UWSPR_HD FanoLaneResult fano_walk(const LaneNodes& nd, int delta,
                                   int32_t budget, bool active,
-                                  uint8_t* out_bytes) {
+                                  uint8_t* out_bytes, Abort& abort) {
   FanoLaneResult r;
   r.success = 0;
   r.metric = 0;
   r.cycles = 1;
   r.maxnp = 0;
-  if (!active) {
+  r.aborted = 0;
+  if (!active || (Abort::kPolls && abort.fired())) {
     for (int b = 0; b < kNbytes; ++b) out_bytes[b] = 0;
+    r.aborted = active ? 1 : 0;
     return r;
   }
 
@@ -178,59 +213,87 @@ UWSPR_HD FanoLaneResult fano_walk(const LaneNodes& nd, int delta,
   int32_t t = 0;
   int32_t maxnp = 0;
   int32_t i = 1;
-  for (; i <= budget; ++i) {
-    if (k > maxnp) maxnp = k;
-    const int32_t ngamma = cur.r.gamma + (cur.branch ? cur.r.tm1 : cur.r.tm0);
-    const Node child = enter(k + 1, ngamma, cur.r.enc, mnext);
-    if (ngamma >= t) {
-      if (cur.r.gamma < t + delta) {
-        while (ngamma >= t + delta) t += delta;
-      }
-      ++k;
-      if (k == kNbits) {  // complete
-        cur.r.gamma = ngamma;
-        break;
-      }
-      prev = cur;
-      cur = child;
-      store_node(nd, k, cur);
-      mhere = mnext;
-      mnext = load_metrics(nd, k + 1);
-    } else {
-      for (;;) {
-        if (k == 0 || prev.r.gamma < t) {
-          t -= delta;
-          if (cur.branch != 0) {
-            cur.branch = 0;
-            cur.r.enc ^= 1u;
-            nd.branch[k] = 0;
-            nd.rec[k].enc = cur.r.enc;
-          }
+  bool complete = false;
+  int32_t stop = kPollLooks - kPollLead;  // looks done at the next poll point
+  bool reads = true;                      // that point reads (else tests)
+  for (;;) {
+    const int32_t lim = Abort::kPolls && stop < budget ? stop : budget;
+    for (; i <= lim; ++i) {
+      if (k > maxnp) maxnp = k;
+      const int32_t ngamma =
+          cur.r.gamma + (cur.branch ? cur.r.tm1 : cur.r.tm0);
+      const Node child = enter(k + 1, ngamma, cur.r.enc, mnext);
+      if (ngamma >= t) {
+        if (cur.r.gamma < t + delta) {
+          while (ngamma >= t + delta) t += delta;
+        }
+        ++k;
+        if (k == kNbits) {  // complete
+          cur.r.gamma = ngamma;
+          complete = true;
           break;
         }
-        --k;
-        cur = prev;
-        mnext = mhere;
-        mhere = load_metrics(nd, k);
-        if (k > 0) prev = load_node(nd, k - 1);
-        if (k < kTail && cur.branch != 1) {
-          cur.branch += 1;
-          cur.r.enc ^= 1u;
-          nd.branch[k] = cur.branch;
-          nd.rec[k].enc = cur.r.enc;
-          break;
+        prev = cur;
+        cur = child;
+        store_node(nd, k, cur);
+        mhere = mnext;
+        mnext = load_metrics(nd, k + 1);
+      } else {
+        for (;;) {
+          if (k == 0 || prev.r.gamma < t) {
+            t -= delta;
+            if (cur.branch != 0) {
+              cur.branch = 0;
+              cur.r.enc ^= 1u;
+              nd.branch[k] = 0;
+              nd.rec[k].enc = cur.r.enc;
+            }
+            break;
+          }
+          --k;
+          cur = prev;
+          mnext = mhere;
+          mhere = load_metrics(nd, k);
+          if (k > 0) prev = load_node(nd, k - 1);
+          if (k < kTail && cur.branch != 1) {
+            cur.branch += 1;
+            cur.r.enc ^= 1u;
+            nd.branch[k] = cur.branch;
+            nd.rec[k].enc = cur.r.enc;
+            break;
+          }
         }
       }
     }
+    if (complete || i > budget) break;
+    // a poll point: i - 1 == stop looks done
+    if (reads) {
+      abort.issue(stop);
+      stop += kPollLead;
+    } else if (abort.fired()) {
+      r.aborted = 1;
+      break;
+    } else {
+      stop += kPollLooks - kPollLead;
+    }
+    reads = !reads;
   }
 
   for (int b = 0; b < kNbytes; ++b)
     out_bytes[b] = static_cast<uint8_t>(nd.rec[7 + 8 * b].enc & 0xFFu);
-  r.success = (i < budget) ? 1 : 0;
+  r.success = (!r.aborted && i < budget) ? 1 : 0;
   r.metric = cur.r.gamma;
-  r.cycles = i + 1;
+  r.cycles = r.aborted ? i : i + 1;
   r.maxnp = maxnp;
   return r;
+}
+
+// The walk without an abort hook.
+UWSPR_HD FanoLaneResult fano_walk(const LaneNodes& nd, int delta,
+                                  int32_t budget, bool active,
+                                  uint8_t* out_bytes) {
+  NoAbort never;
+  return fano_walk(nd, delta, budget, active, out_bytes, never);
 }
 
 }  // namespace uwspr

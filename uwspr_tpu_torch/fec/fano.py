@@ -21,6 +21,15 @@ runs ``fano_decode_batch_plain``,
 the lockstep tensor loop of fano_jax.py:94-243, and counts the call in
 ``PLAIN_CALLS``. The plain loop costs one Python step per primitive move,
 so keep ``maxcycles`` small when it has to run lanes that time out.
+
+``fano_decode_jiggles`` decodes every gated (candidate, jiggle) lane of a
+batch in one call, for a caller that keeps only each candidate's first
+decoded jiggle. On CUDA its kernel walks all the lanes at once (the gated
+lanes first, in jiggle-major order: ``gated_first``) and stops a
+lane of jiggle j >= 1 once a lower jiggle of its candidate has decoded
+(``aborted``); every other lane, and the lowest jiggle that decodes, gets
+the result ``fano_decode_batch`` gives it. On the CPU it is one
+``fano_decode_batch_plain`` call over all the lanes, none stopped.
 """
 
 from __future__ import annotations
@@ -131,6 +140,76 @@ def fano_decode_batch(symbols: torch.Tensor, mettab: torch.Tensor,
         KERNEL_LAUNCHES += 1    # a capture only records it
     return {"success": success, "data": data, "metric": metric,
             "cycles": cycles, "maxnp": maxnp}
+
+
+def fano_decode_jiggles(symbols: torch.Tensor, gate: torch.Tensor,
+                        mettab: torch.Tensor, *, delta: int = 60,
+                        maxcycles: int = 10000) -> dict:
+    """(N, J, 162) soft symbols (u8 values) of N candidates' J jiggles and
+    their (N, J) gate -> the fields of ``fano_decode_batch`` by lane, each
+    (N, J[, 10]), plus ``aborted`` (N, J) bool: the lane's walk stopped
+    because a lower jiggle of its candidate decoded (success False; its
+    other fields are those of a partial walk, cycles its looks + 1).
+    Lanes outside the gate are inactive. See the module doc."""
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    if symbols.dim() != 3 or symbols.shape[2] != 2 * N_CODED_BITS:
+        raise ValueError(f"symbols must be (N, J, {2 * N_CODED_BITS}), got "
+                         f"{tuple(symbols.shape)}")
+    N, J = symbols.shape[:2]
+    if tuple(gate.shape) != (N, J):
+        raise ValueError(f"gate must be ({N}, {J}), got {tuple(gate.shape)}")
+    flat = symbols.reshape(N * J, 2 * N_CODED_BITS)
+    _check(flat, mettab, gate.reshape(N * J))
+    if symbols.device.type == "cpu":
+        PLAIN_CALLS += 1
+        out = fano_decode_batch_plain(flat, mettab, gate.reshape(N * J),
+                                      delta=delta, maxcycles=maxcycles)
+        out = {k: v.reshape((N, J) + v.shape[1:]) for k, v in out.items()}
+        out["aborted"] = torch.zeros((N, J), dtype=torch.bool)
+        return out
+    if symbols.device.type != "cuda":
+        raise ValueError(f"fano_decode_jiggles: unsupported device "
+                         f"{symbols.device}")
+    budget = maxcycles * N_CODED_BITS
+    if not 0 < budget < 2 ** 31 - 256:
+        raise ValueError(f"maxcycles {maxcycles} out of range")
+    dev = symbols.device
+    sym = symbols.to(torch.uint8).contiguous()
+    if sym.data_ptr() % 2:                 # the kernel reads 2-byte pairs
+        sym = sym.clone()
+    act = gate if gate.dtype in (torch.bool, torch.uint8) else gate != 0
+    act = act.contiguous()
+    met = mettab.to(torch.int32).contiguous()
+
+    def empty(dtype, *tail):
+        return torch.empty((N, J) + tail, dtype=dtype, device=dev)
+    out = {"success": empty(torch.bool),
+           "data": empty(torch.uint8, N_CODED_BITS >> 3),
+           "metric": empty(torch.int32), "cycles": empty(torch.int32),
+           "maxnp": empty(torch.int32), "aborted": empty(torch.bool)}
+    first_ok = torch.empty(N, dtype=torch.int32, device=dev)
+    order = gated_first(act)
+    lib = cuda_build.load_library()
+    code = lib.uwspr_fano_decode_jiggles(
+        sym.data_ptr(), act.data_ptr(), order.data_ptr(), met.data_ptr(),
+        N, J, delta, budget, first_ok.data_ptr(),
+        *(out[k].data_ptr() for k in ("success", "data", "metric", "cycles",
+                                      "maxnp", "aborted")),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch("uwspr_fano_decode_jiggles", code)
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
+    return out
+
+
+def gated_first(gate: torch.Tensor) -> torch.Tensor:
+    """The (J*N,) int32 lanes b = j*N + n of an (N, J) gate in jiggle-major
+    order, the gated ones first: on the device, with no host read."""
+    g = gate.t().reshape(-1).to(torch.int32)
+    b = torch.arange(g.shape[0], dtype=torch.int32, device=g.device)
+    c = torch.cumsum(g, 0, dtype=torch.int32)
+    pos = torch.where(g != 0, c - 1, c[-1:] + b - c)
+    return torch.empty_like(b).scatter_(0, pos.to(torch.int64), b)
 
 
 def fano_decode_batch_plain(symbols: torch.Tensor, mettab: torch.Tensor,
@@ -248,4 +327,4 @@ def fano_decode_batch_plain(symbols: torch.Tensor, mettab: torch.Tensor,
 
 __all__ = ["KERNEL_LAUNCHES", "PLAIN_CALLS",
            "branch_metrics", "fano_decode_batch", "fano_decode_batch_plain",
-           "reset_counters"]
+           "fano_decode_jiggles", "reset_counters"]

@@ -14,7 +14,10 @@ The oracles: ``select_best_plain`` on the call's device (best bitwise,
 index equal); the native C++ Fano decoder (fec/fano_native.cc) at the
 call's metric table, delta and budget on the active lanes (success, data,
 metric, cycles and maxnp equal), and the kernel's contract on the inactive
-lanes (no success, data, metric and maxnp 0, cycles 1);
+lanes (no success, data, metric and maxnp 0, cycles 1); for a
+``fano_decode_jiggles`` call the same on every gated lane it did not stop,
+and a stopped lane must be a gated jiggle >= 1 without success whose
+candidate the native decoder decodes at a lower gated jiggle;
 ``probe_powers_plain`` on the call's device, within PROBE_RTOL and
 PROBE_ATOL a power and SYNC_ATOL on the sync derived from the powers.
 """
@@ -90,8 +93,9 @@ def probe_difference(pk: torch.Tensor, pp: torch.Tensor
 
 class KernelReplay:
     """While active, keeps a host copy of the inputs and outputs of every
-    select_best and fano_decode_batch call that the device engine makes
-    (pipeline/device_decoder.py binds both names), and of every select_best
+    select_best, fano_decode_batch and fano_decode_jiggles call that the
+    device engine makes (pipeline/device_decoder.py binds the three
+    names), and of every select_best
     and probe_powers call of the host engine (coarse/search.py and
     demod/finesync.py bind them), so that ``replay()`` can hold each call
     against its oracle afterwards. Host copies leave the card's peak
@@ -108,9 +112,10 @@ class KernelReplay:
         from uwspr_tpu_torch.pipeline import device_decoder as ddm
         self.ddm, self.search, self.finesync = ddm, search, finesync
         self.orig = (ddm.select_best, ddm.fano_decode_batch,
-                     search.select_best, finesync.probe_powers)
+                     ddm.fano_decode_jiggles, search.select_best,
+                     finesync.probe_powers)
         self.select, self.fano, self.probe = [], [], []
-        select_k, fano_k, host_select_k, probe_k = self.orig
+        select_k, fano_k, jiggles_k, host_select_k, probe_k = self.orig
         if select_k is not host_select_k:
             raise RuntimeError("the engines bind different select_best "
                                "functions")
@@ -127,7 +132,18 @@ class KernelReplay:
             self.fano.append((symbols.to(torch.uint8).cpu(), mettab.cpu(),
                               None if active is None else
                               (active != 0).cpu(), delta, maxcycles,
-                              {k: v.cpu() for k, v in out.items()}))
+                              {k: v.cpu() for k, v in out.items()}, None))
+            return out
+
+        def jiggles(symbols, gate, mettab, *, delta=60, maxcycles=10000):
+            out = jiggles_k(symbols, gate, mettab, delta=delta,
+                            maxcycles=maxcycles)
+            N, J = gate.shape
+            host = {k: v.cpu().reshape((N * J,) + v.shape[2:])
+                    for k, v in out.items()}
+            self.fano.append((symbols.to(torch.uint8).cpu().reshape(
+                N * J, -1), mettab.cpu(), (gate != 0).cpu().reshape(N * J),
+                delta, maxcycles, host, J))
             return out
 
         def probe(z_ri, lags, freqs, drift_sym, *, n_lags):
@@ -137,6 +153,7 @@ class KernelReplay:
                                z_ri.device))
             return p
         ddm.select_best, ddm.fano_decode_batch = select, fano
+        ddm.fano_decode_jiggles = jiggles
         search.select_best, finesync.probe_powers = select, probe
         self._eager = eager()
         self._eager.__enter__()
@@ -145,7 +162,8 @@ class KernelReplay:
     def __exit__(self, *exc):
         self._eager.__exit__(*exc)
         (self.ddm.select_best, self.ddm.fano_decode_batch,
-         self.search.select_best, self.finesync.probe_powers) = self.orig
+         self.ddm.fano_decode_jiggles, self.search.select_best,
+         self.finesync.probe_powers) = self.orig
 
     def replay(self) -> dict:
         """Every recorded call against its oracle (the module doc): the
@@ -168,15 +186,27 @@ class KernelReplay:
                                 f"version on the grid {tuple(grid.shape)}")
             n_sel += grid.shape[0]
         err, n_act, n_timeout = 0.0, 0, 0
-        for sym, met, act, delta, mc, out in self.fano:
+        for sym, met, act, delta, mc, out, J in self.fano:
             a = np.ones(sym.shape[0], bool) if act is None else act.numpy()
             ref = fano_decode_batch_host(sym.numpy(), a, backend="native",
                                          device="cpu", mettab=met.numpy(),
                                          delta=delta, maxcycles=mc)
             k = {f: out[f].numpy() for f in FANO_FIELDS}
-            e, bad = fano_difference({f: v[a] for f, v in k.items()},
-                                     {f: np.asarray(v)[a]
+            stopped = (out["aborted"].numpy() if J is not None
+                       else np.zeros_like(a))
+            walked = a & ~stopped
+            e, bad = fano_difference({f: v[walked] for f, v in k.items()},
+                                     {f: np.asarray(v)[walked]
                                       for f, v in zip(FANO_FIELDS, ref)})
+            if stopped.any():
+                ok = (a & ref[0]).reshape(-1, J)
+                n, j = np.divmod(np.flatnonzero(stopped), J)
+                lower = np.arange(J)[None, :] < j[:, None]
+                if not (a[stopped].all() and (j >= 1).all()
+                        and not k["success"][stopped].any()
+                        and (ok[n] & lower).any(axis=1).all()):
+                    failures.append("stopped Fano lanes whose candidate "
+                                    "decodes at no lower jiggle")
             err = max(err, e)
             failures += [f"fano_decode (maxcycles={mc}) vs native: {b}"
                          for b in bad]
@@ -187,7 +217,7 @@ class KernelReplay:
                     and (k["maxnp"][i] == 0).all()):
                 failures.append("inactive Fano lanes break the contract")
             n_act += int(a.sum())
-            n_timeout += int((k["cycles"][a] >= mc * 81).sum())
+            n_timeout += int((k["cycles"][walked] >= mc * 81).sum())
         perr, n_cand = 0.0, 0
         for z_ri, lags, freqs, dsym, n_lags, pk, dev in self.probe:
             with torch.no_grad(), exact_f32():

@@ -17,6 +17,9 @@ with the host's ``uwspr.*`` spans (``utils/profiler.py::span``).
 - ``refine``: the phase A/B probes;
 - ``prefano_tail``: the fine grid, soft symbols, gates and deinterleave;
 - ``fano1``, ``fano2``: the Fano's two phases (``fano2`` where J > 1);
+  where one launch walks every jiggle (fano_compact_lanes > 0) ``fano1``
+  holds the whole walk and ``fano2`` the first-success selection after
+  it;
 - ``osd``: the device OSD (osd_depth > 0);
 - ``pack``: the packed output;
 - ``end``.

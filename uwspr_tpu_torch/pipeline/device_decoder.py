@@ -9,7 +9,7 @@ JAX decoder jits (jit_decoder.py:156-176):
   grid (conv; the im2col einsum with bf16 operands when hpbm > 32) ->
   exact model selection (CUDA kernel) -> phase A/B probe refinement ->
   joint fine grid, soft symbols over all jiggles, sync/rms gates,
-  deinterleave -> two-phase Fano (CUDA kernel) -> first success in jiggle
+  deinterleave -> Fano (CUDA kernel) -> first success in jiggle
   order -> on-device OSD of the worth candidates whose gated lanes all
   failed (osd_depth > 0, fec/osd_torch.py) -> packed (W, C, 23) float32.
 
@@ -17,9 +17,12 @@ The lanes the refinement runs on: with cand_compact_lanes > 0 the valid
 candidates gathered across the batch (_compact_cand_pre); otherwise all
 W*C lanes, and with refine_max_lanes > 0 the post-worth tail on the worth
 lanes gathered across the batch (_compact_refine_tail). The Fano: with
-fano_compact_lanes > 0 every gated lane of the batch, never dropped, in one
-call per phase (_compact_fano); otherwise at most fano_max_lanes gated
-lanes per window and phase, the rest counted in fano_overflow. The OSD
+fano_compact_lanes > 0 every gated lane of the batch, never dropped,
+every jiggle at once in one call (_fano_jiggles; the JAX program's two
+phases, jiggle 0 and then the other jiggles of the candidates it did not
+decode, give the same first success); otherwise two phases of at most
+fano_max_lanes gated lanes per window each, the rest counted in
+fano_overflow. The OSD
 lanes: the failed lanes of the whole batch, compacted to osd_max_lanes
 (the rest counted in fano_overflow). fano_mode "host" (the hybrid engine)
 stops after the gates and packs the soft symbols (_pack_prefano);
@@ -87,7 +90,7 @@ from uwspr_tpu_torch.demod.finesync import (
     shared_probe_eval,
 )
 from uwspr_tpu_torch.device import exact_f32, resolve_device, to_device
-from uwspr_tpu_torch.fec.fano import fano_decode_batch
+from uwspr_tpu_torch.fec.fano import fano_decode_batch, fano_decode_jiggles
 from uwspr_tpu_torch.fec.host import check_backend, fano_decode_batch_host
 from uwspr_tpu_torch.fec.osd import accept_osd
 from uwspr_tpu_torch.fec.osd_torch import bits_to_payload, osd_decode_lanes
@@ -98,11 +101,14 @@ from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
 from uwspr_tpu_torch.params import state_from_numpy, state_keys, state_numpy
 from uwspr_tpu_torch.pipeline.captured import CapturedProgram
 from uwspr_tpu_torch.pipeline.decoder import Spot
-from uwspr_tpu_torch.protocol.constants import FANO_METTAB
+from uwspr_tpu_torch.protocol.constants import FANO_METTAB, N_CODED_BITS
 from uwspr_tpu_torch.protocol.messages import unpack_message
 from uwspr_tpu_torch.utils.profiler import span
 
 _NBYTES = 10        # Fano harvest bytes; the payload is the first 7
+# DeviceDecoder.fano_counts, by index
+FANO_TALLY = ("decodes", "speculative_lanes", "speculative_aborted",
+              "speculative_looks")
 
 
 @dataclass
@@ -177,6 +183,9 @@ class DeviceDecoder:
         self._osd_G = self.state.get("osd_G") if fano_mode == "device" \
             else None
         self._per_window = None
+        # FANO_TALLY over every _fano_jiggles call (see fano_tally)
+        self.fano_counts = torch.zeros(len(FANO_TALLY), dtype=torch.int64,
+                                       device=self.device)
         # the batch program on a card (None on the CPU, which runs eagerly)
         self.program = (CapturedProgram(self.device, self._decode)
                         if self.device.type == "cuda" else None)
@@ -646,37 +655,16 @@ class DeviceDecoder:
 
     # -- Fano (jit_decoder.py:865-1022) -------------------------------------
 
-    def _compact_fano(self, gate_flat: torch.Tensor,
-                      deint_flat: torch.Tensor):
-        """Every gated lane of the flat batch decoded by one Fano call over
-        all N lanes with ``active`` the gate: the kernel walks each lane on
-        its own and an inactive lane starts done (success False, data
-        zero), so every lane gets the bytes of the reference's never-drop
-        chunk walk (jit_decoder.py:865-926), and no count is read on the
-        host. Returns (success (N,), data (N, 10))."""
-        dcfg = self.config.demod
-        out = fano_decode_batch(deint_flat, self.state["mettab"], gate_flat,
-                                maxcycles=dcfg.maxcycles,
-                                delta=dcfg.fano_delta)
-        return out["success"] & gate_flat, out["data"]
-
     def _fano_phase(self, gate: torch.Tensor, deint: torch.Tensor):
-        """One Fano phase over (W, N) gated lanes with (W, N, 162) symbols
-        -> success (W, N), data (W, N, 10), overflow (W,). With
-        fano_compact_lanes > 0 every gated lane of the batch is decoded
-        (_compact_fano: the knob sets no chunk width on the card, one call
-        takes every lane); otherwise at most fano_max_lanes gated lanes per
+        """One phase of the capped Fano (fano_compact_lanes == 0) over
+        (W, N) gated lanes with (W, N, 162) symbols -> success (W, N), data
+        (W, N, 10), overflow (W,): at most fano_max_lanes gated lanes per
         window, gated first, in one call over W*ML lanes, and the gated
         lanes beyond the cap are the overflow (jit_decoder.py:949-966,
         :984-1000)."""
         dcfg = self.config.demod
         W, N = gate.shape
         dev = gate.device
-        if dcfg.fano_compact_lanes > 0:
-            succ, data = self._compact_fano(gate.reshape(W * N),
-                                            deint.reshape(W * N, 162))
-            return (succ.reshape(W, N), data.reshape(W, N, _NBYTES),
-                    torch.zeros(W, dtype=torch.int64, device=dev))
         ML = min(dcfg.fano_max_lanes, N)
         sel = torch.argsort((~gate).to(torch.int8), dim=1, stable=True)[:, :ML]
         g = torch.gather(gate, 1, sel)                          # (W, ML)
@@ -691,10 +679,51 @@ class DeviceDecoder:
         data[wi, sel] = out["data"].reshape(W, ML, _NBYTES)
         return succ, data, torch.clamp(gate.sum(dim=1) - ML, min=0)
 
+    def _fano_jiggles(self, gate: torch.Tensor, deint: torch.Tensor):
+        """Every gated (candidate, jiggle) lane of the batch in one
+        ``fano_decode_jiggles`` call: (W, C, J) gate, (W, C, J, 162) symbols
+        -> success (W, C, J) masked to the gate, data (W, C, J, 10). A lane
+        stopped because a lower jiggle of its candidate decoded reports no
+        success, so the first success in jiggle order is the two phases'
+        (jit_decoder.py:928-1022).
+
+        Adds to ``fano_counts`` on the device, with no host read: one
+        decode, the speculative lanes (gated jiggles >= 1 of candidates
+        whose jiggle 0 decoded, which the two phases would not walk), how
+        many of them stopped early, and the forward looks they spent."""
+        dcfg = self.config.demod
+        W, C, J = gate.shape
+        out = fano_decode_jiggles(deint.reshape(W * C, J, 162),
+                                  gate.reshape(W * C, J),
+                                  self.state["mettab"],
+                                  maxcycles=dcfg.maxcycles,
+                                  delta=dcfg.fano_delta)
+        success = out["success"] & gate.reshape(W * C, J)
+        spec = gate.reshape(W * C, J)[:, 1:] & success[:, :1]
+        looks = torch.clamp(out["cycles"][:, 1:] - 1,
+                            max=dcfg.maxcycles * N_CODED_BITS)
+        self.fano_counts += torch.stack([
+            torch.ones((), dtype=torch.int64, device=gate.device),
+            spec.sum(), (spec & out["aborted"][:, 1:]).sum(),
+            torch.where(spec, looks, 0).sum()])
+        return (success.reshape(W, C, J),
+                out["data"].reshape(W, C, J, _NBYTES))
+
+    def fano_tally(self) -> dict:
+        """``fano_counts`` on the host, by FANO_TALLY name: the decodes that
+        ran ``_fano_jiggles`` (each captured replay and eager run), and
+        over them the speculative lanes, how many stopped early and the
+        forward looks they spent. Waits for the card (one read); the
+        serving path never calls it."""
+        return dict(zip(FANO_TALLY, self.fano_counts.tolist()))
+
     def _fano_select_batch(self, pre: dict) -> dict:
-        """Two-phase Fano (jiggle 0 of every lane, then the other jiggles of
-        lanes phase 1 did not decode), first success in jiggle order, then
-        on-device OSD when it is on (jit_decoder.py:928-1022)."""
+        """Fano over the gated lanes, first success in jiggle order, then
+        on-device OSD when it is on (jit_decoder.py:928-1022). With
+        fano_compact_lanes > 0 every jiggle in one call
+        (``_fano_jiggles``); otherwise the capped two phases: jiggle 0 of
+        every lane, then the other jiggles of lanes phase 1 did not
+        decode."""
         gate = pre["gate"]
         W, C, J = gate.shape
         dev = gate.device
@@ -705,26 +734,30 @@ class DeviceDecoder:
                            torch.zeros(W, dtype=torch.int64, device=dev))
 
         marks.mark("fano1", gate)
-        succ0, data0, over0 = self._fano_phase(gate[:, :, 0], deint[:, :, 0])
-        overflow = overflow + over0
-        if J == 1:
-            any_success = succ0
-            jbest = torch.zeros((W, C), dtype=torch.int64, device=dev)
-            payload = data0[:, :, :7]
+        if self.config.demod.fano_compact_lanes > 0:
+            success, data = self._fano_jiggles(gate, deint)
+            if J > 1:
+                marks.mark("fano2", gate)
         else:
-            R = C * (J - 1)
-            marks.mark("fano2", gate)
-            gate_rest = (gate[:, :, 1:] & ~succ0[:, :, None]).reshape(W, R)
-            succr, datar, over2 = self._fano_phase(
-                gate_rest, deint[:, :, 1:].reshape(W, R, 162))
-            overflow = overflow + over2
-            success = torch.cat([succ0[:, :, None],
-                                 succr.reshape(W, C, J - 1)], dim=2)
-            data = torch.cat([data0[:, :, None],
-                              datar.reshape(W, C, J - 1, _NBYTES)], dim=2)
-            any_success = success.any(dim=2)
-            jbest = torch.argmax(success.to(torch.int8), dim=2)  # first True
-            payload = data[widx, cidx, jbest][..., :7]
+            succ0, data0, over0 = self._fano_phase(gate[:, :, 0],
+                                                   deint[:, :, 0])
+            overflow = overflow + over0
+            success, data = succ0[:, :, None], data0[:, :, None]
+            if J > 1:
+                R = C * (J - 1)
+                marks.mark("fano2", gate)
+                gate_rest = (gate[:, :, 1:]
+                             & ~succ0[:, :, None]).reshape(W, R)
+                succr, datar, over2 = self._fano_phase(
+                    gate_rest, deint[:, :, 1:].reshape(W, R, 162))
+                overflow = overflow + over2
+                success = torch.cat([success, succr.reshape(W, C, J - 1)],
+                                    dim=2)
+                data = torch.cat([data, datar.reshape(W, C, J - 1, _NBYTES)],
+                                 dim=2)
+        any_success = success.any(dim=2)
+        jbest = torch.argmax(success.to(torch.int8), dim=2)     # first True
+        payload = data[widx, cidx, jbest][..., :7]
         osd = torch.zeros((W, C), dtype=torch.int64, device=dev)
         if self._osd_G is not None:
             marks.mark("osd", gate)

@@ -51,6 +51,12 @@ _SIGNATURES = {
                           _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p, _C.c_void_p, _C.c_void_p,
                           _C.c_void_p],
+    "uwspr_fano_decode_jiggles": [_C.c_void_p, _C.c_void_p, _C.c_void_p,
+                                  _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                                  _C.c_int,
+                                  _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                                  _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                                  _C.c_void_p, _C.c_void_p],
     "uwspr_osd_decode": [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
                          _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
                          _C.c_void_p, _C.c_void_p],
