@@ -33,7 +33,13 @@ and prints a JSON line:
   the one-launch Fano over every jiggle, the speculative lanes (gated
   jiggles >= 1 of candidates whose jiggle 0 decoded, which two phases
   would not walk), how many of them stopped early and the forward looks
-  they spent, the last three also per decode.
+  they spent, the last three also per decode;
+- ``osd_tally``: where the cell's driver puts the device OSD's tally in
+  its counters (``decode_batches_osd``: ``osd_<name>`` for each name of
+  ``OSD_TALLY``), those counts: the decodes that ran the device OSD, the
+  rescue lanes it decoded, those accepted by margin and by agreement
+  alone, and those dropped over ``osd_max_lanes``, the last four also per
+  decode; else None.
 
 With ``--out`` the JSON is also appended to DIR/trace_stages.jsonl.
 """
@@ -170,6 +176,17 @@ def fano_tally(kept: list) -> dict:
                         if k != "decodes"}}
 
 
+def osd_tally(counters: dict) -> dict | None:
+    """The ``osd_*`` counters a cell's driver loop puts in ``r.counters``,
+    by tally name, and per decode."""
+    total = {k[4:]: v for k, v in counters.items() if k.startswith("osd_")}
+    if not total:
+        return None
+    n = max(total["decodes"], 1)
+    return {**total, **{f"{k}_per_decode": v / n for k, v in total.items()
+                        if k != "decodes"}}
+
+
 def main(argv=None) -> int:
     from wsprbench import run as R
     t_start = R.process_start()
@@ -210,6 +227,7 @@ def main(argv=None) -> int:
             "end_to_end": R.end_to_end(r, t_start)},
         "span_check_ns": span_check_ns(),
         "fano_tally": fano_tally(tallies),
+        "osd_tally": osd_tally(r.counters),
     }
     line = json.dumps(out)
     print(line, flush=True)

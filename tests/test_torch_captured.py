@@ -245,3 +245,25 @@ def test_no_fallback_in_capture_or_replay():
     # the only switch is eager(): the program takes no other
     params = inspect.signature(CapturedProgram).parameters
     assert list(params) == ["device", "fn"]
+
+
+@pytest.mark.cuda
+def test_handles_in_flight_fetch_their_own_batch_on_card(window):
+    """Two batches in flight on a card: each handle carries its own copy
+    to the host, queued behind its batch, and its fetch gives what the
+    batch decoded alone gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a captured program)")
+    dec = DeviceDecoder(TOY, device="cuda")
+    a = complex_to_ri(window)[None]
+    b = np.ascontiguousarray(a[..., ::-1])
+    alone = [dec.decode_windows_ri(x).cpu() for x in (a, b)]
+    handles = [dec.decode_windows_ri(x) for x in (a, b)]
+    for h, want in zip(handles, alone):
+        host, _ = h.uwspr_host
+        assert host.is_pinned() and host.device.type == "cpu"
+        got = dec.fetch(h)
+        assert torch.equal(host, want)
+        np.testing.assert_array_equal(got.success,
+                                      dec.unpack_output(want).success)
+    assert dec.unpack_output(alone[0]).success.any()

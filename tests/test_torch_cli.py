@@ -291,3 +291,28 @@ def test_cli_process_loads_no_jax(frame):
     leaked = [m for m in mods if m.split(".")[0].startswith("jax")
               or m.split(".")[0] == "uwspr_tpu"]
     assert leaked == []
+
+
+@pytest.mark.parametrize("runtime, module, cls", [
+    ("python", "uwspr_tpu_torch.pipeline.stream", "StreamDecoder"),
+    ("ring", "uwspr_tpu_torch.pipeline.device_ring", "RingServe")])
+def test_serve_osd_depth_reaches_the_runtime(runtime, module, cls,
+                                             monkeypatch):
+    """``serve --osd-depth`` (with ``--maxcycles``, the deep-SNR
+    deployment's two settings) reaches the runtime's
+    ``DemodConfig.osd_depth``; without it the depth stays 0."""
+    import importlib
+
+    class Seen(Exception):
+        pass
+
+    def record(config, *a, **k):
+        raise Seen(config)
+    monkeypatch.setattr(importlib.import_module(module), cls, record)
+    for argv, depth, budget in (
+            (("--osd-depth", "4", "--maxcycles", "500"), 4, 500),
+            (("--maxcycles", "500"), 0, 500)):
+        with pytest.raises(Seen) as e:
+            port("serve", "--runtime", runtime, "--engine", "device", *argv)
+        demod = e.value.args[0].demod
+        assert (demod.osd_depth, demod.maxcycles) == (depth, budget)

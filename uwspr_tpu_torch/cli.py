@@ -16,8 +16,8 @@ Counterpart of uwspr_tpu/cli.py, with its subcommands and flags, except:
   and on CUDA the device and hybrid engines of ``decode`` take
   ``with_serving_defaults(config, 1)``.
 - ``serve`` takes the soundcard only for ``--input audio`` or
-  ``audio:<device>``; any other name is a file. ``--maxcycles`` and
-  ``--jiggles`` reach every runtime.
+  ``audio:<device>``; any other name is a file. ``--maxcycles``,
+  ``--jiggles`` and ``--osd-depth`` reach every runtime.
 - ``serve --mesh CxT`` runs one torch.distributed rank per (channel,
   time) shard and names its backend, ``--dist-backend nccl`` (a card per
   rank) or ``gloo`` (the CPU, or ranks that share a card); nothing chooses
@@ -899,6 +899,10 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--jiggles", type=int, default=None,
                    help="time-jiggle retry attempts per candidate "
                         "(default: the reference 17)")
+    v.add_argument("--osd-depth", type=int, default=0,
+                   help="ordered-statistics decoding fallback when the "
+                        "Fano fails (0 = off; the device engines run "
+                        "order min(depth, 4); spots tagged 'osd')")
     v.add_argument("--batch", type=int, default=8,
                    help="windows per batch for --runtime native")
     v.add_argument("--passes", type=int, default=1,

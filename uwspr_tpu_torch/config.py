@@ -175,7 +175,7 @@ class DemodConfig:
     osd_max_lanes: int = 32       # device/mesh engines: Fano-failed worth
                                   # lanes compacted to this many on-device
                                   # order-<=4 OSD lanes per batch
-                                  # (fec/osd_jax.py); 0 disables device OSD
+                                  # (fec/osd_torch.py); 0 disables device OSD
                                   # even when osd_depth > 0. Overflow lanes
                                   # degrade gracefully (no rescue) and
                                   # count into fano_overflow. Host/hybrid

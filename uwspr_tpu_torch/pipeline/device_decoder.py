@@ -42,7 +42,10 @@ engine queues a batch's work and returns without waiting for the card: no
 Python value depends on a tensor's contents, every shape is fixed by the
 config and the batch, and a host input goes out from pinned memory without
 blocking. ``fetch`` (``unpack_output``, the hybrid engine's host Fano) is
-where the host waits. That holds in every config: the device OSD
+where the host waits. On a CUDA device the packed output's copy to the
+host is queued with the batch (``_copy_to_host``), so that with several
+batches in flight the fetch of one waits for that batch alone, and not for
+the batches queued after it. That holds in every config: the device OSD
 (osd_depth > 0) decodes osd_max_lanes lanes a batch with the failed mask
 as its kernel's ``active`` (``_osd_rescue``), as the JAX program does.
 
@@ -109,6 +112,9 @@ _NBYTES = 10        # Fano harvest bytes; the payload is the first 7
 # DeviceDecoder.fano_counts, by index
 FANO_TALLY = ("decodes", "speculative_lanes", "speculative_aborted",
               "speculative_looks")
+# DeviceDecoder.osd_counts, by index
+OSD_TALLY = ("decodes", "active_lanes", "accepted_margin",
+             "accepted_agreement", "dropped")
 
 
 @dataclass
@@ -151,6 +157,17 @@ def check_slice(config: PipelineConfig, fano_mode: str = "device") -> None:
         raise ValueError(f"fano_mode {fano_mode!r} not in {FANO_MODES}")
 
 
+def _copy_to_host(x: torch.Tensor) -> tuple[torch.Tensor, torch.cuda.Event]:
+    """(x's copy in pinned host memory, the event that marks it done): the
+    copy is queued on the current stream now, behind the work that makes x
+    and ahead of any work queued later."""
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
 class DeviceDecoder:
     """Configuration-baked batched decoder on an explicit device.
 
@@ -186,6 +203,9 @@ class DeviceDecoder:
         # FANO_TALLY over every _fano_jiggles call (see fano_tally)
         self.fano_counts = torch.zeros(len(FANO_TALLY), dtype=torch.int64,
                                        device=self.device)
+        # OSD_TALLY over every _osd_rescue call (see osd_tally)
+        self.osd_counts = torch.zeros(len(OSD_TALLY), dtype=torch.int64,
+                                      device=self.device)
         # the batch program on a card (None on the CPU, which runs eagerly)
         self.program = (CapturedProgram(self.device, self._decode)
                         if self.device.type == "cuda" else None)
@@ -239,6 +259,8 @@ class DeviceDecoder:
                 packed = self.program(ri)
             else:
                 packed = self._decode(to_device(ri, self.device))
+            if packed.is_cuda and self.fano_mode == "device":
+                packed.uwspr_host = _copy_to_host(packed)
         packed.uwspr_request = n
         return packed
 
@@ -268,10 +290,17 @@ class DeviceDecoder:
     def fetch(self, packed: torch.Tensor) -> DeviceDecoderOutput:
         """A packed result of decode_windows_ri (any leading dims) -> typed
         output: unpacked, or in fano_mode "host" Fano-decoded on the host.
-        Waits for the card to finish the batch."""
+        Waits for the card to finish the batch: for a handle of
+        decode_windows_ri on a CUDA device, for the copy to the host that
+        call queued, and so not for a batch queued after it."""
         with span("decoder.fetch", getattr(packed, "uwspr_request", None)):
             if self.fano_mode == "host":
                 return self.host_fano_assemble(packed)
+            queued = getattr(packed, "uwspr_host", None)
+            if queued is not None:
+                host, done = queued
+                done.synchronize()
+                packed = host
             return self.unpack_output(packed)
 
     def decode_batch(self, zs: np.ndarray) -> DeviceDecoderOutput:
@@ -717,6 +746,16 @@ class DeviceDecoder:
         serving path never calls it."""
         return dict(zip(FANO_TALLY, self.fano_counts.tolist()))
 
+    def osd_tally(self) -> dict:
+        """``osd_counts`` on the host, by OSD_TALLY name: the decodes that
+        ran ``_osd_rescue`` (each captured replay and eager run), and over
+        them the rescue lanes decoded (active, each decoded on two jiggle
+        lanes), those accepted by the margin screen, those accepted by
+        cross-jiggle agreement alone, and the failed lanes dropped over
+        osd_max_lanes. Waits for the card (one read); the serving path
+        never calls it."""
+        return dict(zip(OSD_TALLY, self.osd_counts.tolist()))
+
     def _fano_select_batch(self, pre: dict) -> dict:
         """Fano over the gated lanes, first success in jiggle order, then
         on-device OSD when it is on (jit_decoder.py:928-1022). With
@@ -795,6 +834,10 @@ class DeviceDecoder:
         batch with no failed lane launches the kernel over inactive lanes,
         which start done.
 
+        Adds to ``osd_counts`` on the device, with no host read: one
+        decode, the active lanes, those accepted by margin, those accepted
+        by agreement alone, and the dropped lanes.
+
         Fields (W, C[, J]) -> (any_success, payload, jbest, osd, dropped),
         each (W, C[, 7])."""
         dcfg = self.config.demod
@@ -820,9 +863,9 @@ class DeviceDecoder:
                                       torch.cat([fs, fs]))
         agree = (u[:ML] == u[ML:]).all(dim=1) & has2[sel]
         q, m = q[:ML], m[:ML]
-        ok = fs & ((q >= dcfg.osd_min_quality)
-                   & ((m >= dcfg.osd_min_margin)
-                      | (agree & (m >= dcfg.osd_margin_agree))))
+        good = fs & (q >= dcfg.osd_min_quality)
+        by_margin = good & (m >= dcfg.osd_min_margin)
+        ok = by_margin | (good & agree & (m >= dcfg.osd_margin_agree))
         pay = payload.reshape(L, payload.shape[-1])
         pl = bits_to_payload(u[:ML])[:, :pay.shape[-1]]
         pay = pay.index_copy(0, sel, torch.where(ok[:, None], pl, pay[sel]))
@@ -833,6 +876,9 @@ class DeviceDecoder:
         osd = torch.zeros(L, dtype=torch.int64, device=dev).index_copy(
             0, sel, ok.to(torch.int64) * order)
         dropped = fail.index_fill(0, sel, False)
+        self.osd_counts += torch.stack([
+            torch.ones((), dtype=torch.int64, device=dev), fs.sum(),
+            by_margin.sum(), (ok & ~by_margin).sum(), dropped.sum()])
         return (succ.reshape(W, C), pay.reshape(W, C, -1), jb.reshape(W, C),
                 osd.reshape(W, C), dropped.reshape(W, C))
 
