@@ -444,6 +444,10 @@ def phase_build():
         nt = stft.mma_tiles(ncols)
         log(f"[build] stft_power_mma<{nt}> ({ncols} columns): "
             f"{lib.uwspr_stft_power_smem(512, 128, nt)} bytes dynamic smem")
+    for slots in (65, 1000):
+        log(f"[build] sync_grid_kernel at {slots} candidate slots, 126 "
+            f"models: {lib.uwspr_sync_grid_smem(slots, 126)} bytes dynamic "
+            f"smem")
     sass = cuda_build.sass_counts(info["library"], "HMMA")
     mma = {k: v for k, v in sass.items() if "stft_power_mma" in k}
     log(f"[build] tensor-core instructions (cuobjdump -sass) in the STFT "
@@ -4421,6 +4425,111 @@ def timing_stft(card, z_main, kw, stft_inputs, wide):
     return out
 
 
+def grid_call(dec, ri_c):
+    """(args, kwargs) of the decoder's coarse_score_grid call on the windows
+    ri_c, recorded from an eager coarse_grid."""
+    import torch
+
+    from uwspr_tpu_torch.pipeline import captured
+    from uwspr_tpu_torch.pipeline import device_decoder as dd
+    seen, real = {}, dd.coarse_score_grid
+
+    def record(*a, **k):
+        seen.update(args=a, kwargs=k)
+        return real(*a, **k)
+    dd.coarse_score_grid = record
+    try:
+        with torch.no_grad(), captured.eager():
+            dec.coarse_grid(torch.complex(ri_c[:, 0], ri_c[:, 1]))
+    finally:
+        dd.coarse_score_grid = real
+    return seen["args"], seen["kwargs"]
+
+
+def timing_sync_grid(card, dec, ri_c, sm_mhz):
+    """The sync-grid kernel at the cells' shapes: narrowband W = 128
+    (narrow_cycle_w128 and the ring's hop), narrowband W = 32
+    (narrow_osd_deep_w32), wideband W = 32 (wide_cycle_w32), each on the
+    decoder's own coarse_score_grid call; against sync_grid_plain (bit for
+    bit) and the library form it replaced on the card (cuDNN's dilated
+    conv2d narrowband, the im2col einsum wideband, each with its planes,
+    gathers and division). Bound: the larger of the adds (2 x 162 x 26 a
+    read column, model and lag, at 128 f32 adds a clock an SM) and the
+    shared-memory reads that feed them (one 4-byte word an add at 32 a
+    clock an SM), over the columns a candidate slot reads."""
+    import torch
+
+    from uwspr_tpu_torch.coarse import search
+    from uwspr_tpu_torch.config import (CoarseConfig, PipelineConfig,
+                                        with_serving_defaults)
+    from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    wri, _ = wideband_windows()
+    wdec = DeviceDecoder(with_serving_defaults(PipelineConfig(
+        coarse=CoarseConfig(halfbandwidth=187, maxfreqs=200)), WB_WINDOWS),
+        device="cuda")
+    cases = {"narrowband W=128": (dec, ri_c),
+             "narrowband W=32": (dec, ri_c[:32].contiguous()),
+             "wideband W=32": (wdec, torch.from_numpy(wri).cuda())}
+    sm_clock = sm_mhz * 1e6
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (d, x) in cases.items():
+        (ps, if0, offs, sign), kw = grid_call(d, x)
+        lo, width = search.grid_window(ps.shape[-1], kw["f_window"])
+        ifr = search.grid_columns(if0, lo, width)
+        dtype, impl = kw["dtype"], kw["impl"]
+        at = dict(lo=lo, width=width, dtype=dtype)
+        form = search.conv_grid if impl == "conv" else search.einsum_grid
+
+        def library():
+            planes = search.grid_planes(ps, lo, width, dtype)
+            return form(*planes, ifr, offs, sign)
+        with torch.no_grad(), exact_f32():
+            ms, turns, outs = time_turns(
+                [("plain", lambda: search.sync_grid_plain(
+                    ps, ifr, offs, sign, **at)),
+                 ("kernel", lambda: search.sync_grid(ps, ifr, offs, sign,
+                                                     **at)),
+                 ("library", library)],
+                {"plain": 2, "kernel": 20, "library": 5})
+        k, pl, lib = outs["kernel"], outs["plain"], outs["library"]
+        require(torch.equal(k.view(torch.int32), pl.view(torch.int32)),
+                f"sync_grid {name}: kernel differs from plain")
+        W, C, _, L, M = k.shape
+        cols = sum(int(torch.unique(ifr[b]).numel()) for b in range(W))
+        adds = 2.0 * 162 * L * M * cols
+        t_add = adds / (128 * n_sms * sm_clock) * 1e3
+        t_lds = adds / (32 * n_sms * sm_clock) * 1e3
+        nbytes = ps.numel() * 4 + k.numel() * 4
+        t_hbm = nbytes / HBM_BYTES_S * 1e3
+        bnd = max((t_add, "operations", "f32 adds"),
+                  (t_lds, "operations", "shared reads"),
+                  (t_hbm, "bytes", "HBM"))
+        diff = float((lib - pl).abs().nan_to_num().max())
+        what = "cuDNN conv2d" if impl == "conv" else "im2col copies + SGEMM"
+        e = entry("sync_grid", "sync_grid.cu",
+                  "none: XLA conv / einsum (uwspr_tpu/coarse/search.py:259)",
+                  [W, C, 5, L, M], ms["kernel"], ms["plain"], bnd,
+                  f"the {impl} form ({what}), its planes, gathers and "
+                  f"division", ms["library"], 0.0)
+        e.update(columns_read=cols, add_bound_ms=t_add, shared_bound_ms=t_lds,
+                 ms_per_window=ms["kernel"] / W,
+                 library_ms_per_window=ms["library"] / W,
+                 library_max_abs_diff=diff)
+        log(f"[timing] {card}: sync_grid {name} ({W}, {C}, 5, {L}, {M}), "
+            f"{dtype} planes, {cols} columns read: kernel "
+            f"{ms['kernel']:.4f} ms ({ms['kernel'] / W:.5f} a window), plain "
+            f"{ms['plain']:.4f} ms, library ({impl}) {ms['library']:.4f} ms "
+            f"({ms['library'] / W:.5f} a window); bounds: adds {t_add:.4f} "
+            f"ms, shared reads {t_lds:.4f} ms, HBM {t_hbm:.4f} ms; "
+            f"{100 * e['bound_share']:.1f} % of the largest (turns "
+            f"{fmt_turns(turns)}); kernel == plain, bit-exact; library "
+            f"within {diff:.3g} of plain")
+        out[name] = e
+    return out
+
+
 def main() -> int:
     card, sm_mhz = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -4469,6 +4578,7 @@ def main() -> int:
     jig = timing_fano_jiggles(dec, ri_c, card, sm_mhz)
     probes = timing_probe(card, z_ri, cases)
     stfts = timing_stft(card, z, kw, stft_inputs, wide)
+    grids = timing_sync_grid(card, dec, ri_c, sm_mhz)
     runtimes = timing_runtimes(card, stream, ring, htod)
     osd_e = osd["entry"]
     sel = sels["device"]
@@ -4483,6 +4593,10 @@ def main() -> int:
     stf["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",
                                                   "bound_ms", "library_ms")}
                            for k, v in stfts.items() if v is not stf}
+    grd = grids["narrowband W=128"]
+    grd["other_shapes"] = {k: {f: v[f] for f in ("shape", "ms", "plain_ms",
+                                                  "bound_ms", "library_ms")}
+                           for k, v in grids.items() if v is not grd}
     paths = {"device": launches, "host": host_launches,
              "pallas": pallas_launches, "ring": ring_launches,
              "wideband": wide["launches"],
@@ -4496,7 +4610,8 @@ def main() -> int:
                       (fan, launches["fano_decode"], fano_err),
                       (prb, host_launches["probe_powers"], probe_err),
                       (stf, pallas_launches["stft_power"], stft_err),
-                      (osd_e, osd["launches"]["osd_decode"], 0.0)):
+                      (osd_e, osd["launches"]["osd_decode"], 0.0),
+                      (grd, launches["sync_grid"], 0.0)):
         e["launches"] = n
         e["ring_launches"] = ring_launches[e["name"]]
         e["path_launches"] = {k: v.get(e["name"]) for k, v in paths.items()}
@@ -4527,7 +4642,7 @@ def main() -> int:
     print(json.dumps({"scaling": scale}), flush=True)
     print(json.dumps({"async": asyn}), flush=True)
     print(json.dumps({"captured": capt}), flush=True)
-    print(json.dumps({"kernels": [sel, fan, jig, prb, stf, osd_e]}),
+    print(json.dumps({"kernels": [sel, fan, jig, prb, stf, osd_e, grd]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -174,6 +174,9 @@ label="graph_1" graph[style="dashed"];
 "graph_1_node_131"[style="bold" shape="octagon" label="131
 _ZN2at6native18elementwise_kernelILi128ELi2EZNS0_22gpu_kernel_impl_nocastIZZZNS0_23direct_copy_kernel_cudaERNS_18TensorIteratorBaseEEEEviT1_
 "];
+"graph_1_node_130"[style="bold" shape="octagon" label="130
+_ZN45_GLOBAL__N__e789c3d9_12_sync_grid_cu_04b6cda516sync_grid_kernelEPKfiiiiPKiiPKhiS1_iPf
+"];
 "graph_1_node_132"[style="bold" shape="octagon" label="132
 _ZN47_GLOBAL__N__76cca7d7_14_select_best_cu_7cd6584318select_best_kernelEPKfPKhiidiPfPi
 "];
@@ -201,7 +204,7 @@ MEMCPY
 def test_graph_kernel_nodes_counted_by_kernel():
     assert dot_kernels(DOT) == {"select_best": 1, "fano_decode": 2,
                                 "probe_powers": 0, "stft_power": 1,
-                                "osd_decode": 1}
+                                "osd_decode": 1, "sync_grid": 1}
     assert set(KERNEL_SYMBOLS) == {n for n, _ in captured.COUNTED}
     assert dot_kernels("digraph dot {\n}\n") == dict.fromkeys(
         KERNEL_SYMBOLS, 0)
@@ -217,7 +220,7 @@ def test_replay_launches_are_in_the_counts():
         launches, plain = replay.counters()
         assert launches == {"select_best": 3, "fano_decode": 6,
                             "probe_powers": 0, "stft_power": 0,
-                            "osd_decode": 0}
+                            "osd_decode": 0, "sync_grid": 0}
         assert not any(plain.values())
     finally:
         replay.reset_counters()

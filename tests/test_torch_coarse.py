@@ -135,6 +135,61 @@ def test_conv_grid_matches(dtype):
         np.testing.assert_allclose(got[w], ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("impl, dtype", [("conv", "f32"), ("conv", "bf16"),
+                                         ("einsum", "f32"),
+                                         ("einsum", "bf16")])
+def test_plain_grid_matches_forms(impl, dtype):
+    """sync_grid_plain, the card kernel's arithmetic (162 gathers summed in
+    ascending k), against the CPU form of coarse_score_grid: the conv at
+    the narrowband column window, the einsum at the full 512 columns with
+    a lane at bin 0 (its columns -2 and -1 wrap to the top) and one at the
+    top bin (its columns past 511 clamp). Both sum the same 162 f32 terms
+    of each cell in another order: a few ulps of ss and pw, rtol 1e-5."""
+    bank = tsearch.build_drift_models(CFG)
+    offs = torch.from_numpy(bank.offsets)
+    sign = torch.from_numpy(2.0 * np.asarray(jsearch.SYNC_VECTOR,
+                                             np.float32) - 1.0)
+    if impl == "conv":
+        ps = torch.from_numpy(_ps("fft"))
+        if0 = torch.tensor([[240, 245, 250], [247, 252, 258]]) - CB0
+        fw = (M_HALF - CFG.hpbm - 7 - CB0, M_HALF + CFG.hpbm + 7 - CB0)
+    else:
+        ps = torch.from_numpy(np.array(jax_stft(
+            jnp.asarray(Z[:1]), n_ffts=CFG.n_ffts, size=CFG.fft_size,
+            hop=CFG.spb // 2)))
+        if0 = torch.tensor([[240, 0, 511]])
+        fw = None
+    lo, width = tsearch.grid_window(ps.shape[-1], fw)
+    ifr = tsearch.grid_columns(if0, lo, width)
+    if impl == "einsum":
+        assert ifr[0, 1].tolist() == [510, 511, 0, 1, 2]
+        assert ifr[0, 2].tolist() == [509, 510, 511, 511, 511]
+    got = tsearch.sync_grid_plain(ps, ifr, offs, sign, lo=lo, width=width,
+                                  dtype=dtype).numpy()
+    ref = tsearch.coarse_score_grid(ps, if0, offs, sign, impl=impl,
+                                    f_window=fw, dtype=dtype).numpy()
+    assert got.shape == ref.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_plain_grid_equal_offset_rows_score_equal():
+    """Two models with equal offset rows get bit-equal scores: every cell
+    sums its terms in the same order whatever the model."""
+    offs = torch.from_numpy(tsearch.build_drift_models(CFG).offsets).clone()
+    offs[3] = offs[100]
+    sign = torch.from_numpy(2.0 * np.asarray(jsearch.SYNC_VECTOR,
+                                             np.float32) - 1.0)
+    ps = torch.from_numpy(_ps("fft"))
+    fw = (M_HALF - CFG.hpbm - 7 - CB0, M_HALF + CFG.hpbm + 7 - CB0)
+    lo, width = tsearch.grid_window(ps.shape[-1], fw)
+    ifr = tsearch.grid_columns(torch.tensor([[241, 249], [250, 255]]) - CB0,
+                               lo, width)
+    g = tsearch.sync_grid_plain(ps, ifr, offs, sign, lo=lo, width=width)
+    assert torch.equal(g[..., 3].view(torch.int32),
+                       g[..., 100].view(torch.int32))
+
+
 def _serving(cfg):
     return with_serving_defaults(cfg, 2)
 

@@ -16,7 +16,10 @@ both on the CPU (the port with its kernels' plain versions).
   spectrum against the JAX function, with candidate bins at both edges of
   the spectrum and a padded lane (bin 511, whose columns run past the
   top): within 1e-5 absolute (sums of 162 terms taken in another order;
-  the grid is a ratio in [-1, 1]), NaN at the same cells.
+  the grid is a ratio in [-1, 1]), NaN at the same cells; and
+  sync_grid_plain (the card kernel's arithmetic) on the same lanes, f32
+  and bf16 planes, against the JAX grid and the einsum form to the same
+  tolerance.
 """
 
 import dataclasses as dc
@@ -32,7 +35,8 @@ from test_torch_decoder import assert_outputs_match
 from uwspr_tpu.coarse.search import coarse_score_grid as jax_grid
 from uwspr_tpu.pipeline.jit_decoder import DeviceDecoder as JaxDecoder
 from uwspr_tpu_torch import params
-from uwspr_tpu_torch.coarse.search import coarse_score_grid
+from uwspr_tpu_torch.coarse.search import (coarse_score_grid,
+                                           grid_columns, sync_grid_plain)
 from uwspr_tpu_torch.config import CoarseConfig, DemodConfig, PipelineConfig
 from uwspr_tpu_torch.io.channel import awgn
 from uwspr_tpu_torch.ops.stft import stft_power
@@ -111,3 +115,38 @@ def test_wideband_grid_matches_jax():
     np.testing.assert_allclose(t, j, rtol=0, atol=1e-5)
     # the top lane's columns 512 and 513 read column 511, as JAX clamps
     np.testing.assert_array_equal(t[6, 3], t[6, 4])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_wideband_plain_grid_matches(dtype):
+    """sync_grid_plain at the wideband window (-7, 519), clamped to the 512
+    columns, on lanes at both edges (bin 0 wraps, bins 510 and 511 clamp
+    past the top): within 1e-5 absolute of the JAX grid and of the einsum
+    form (the same 162 f32 terms a cell summed in another order), NaN at
+    the same cells."""
+    cfg = WIDEBAND
+    m = cfg.fft_size // 2
+    ps = stft_power(Z[1], n_ffts=cfg.n_ffts, size=cfg.fft_size,
+                    hop=cfg.spb // 2, device="cpu")[None]
+    st = params.state_numpy(CFG)
+    if0 = np.array([0, 1, 255, 510, 511], np.int32)
+    fw = (m - cfg.hpbm - 7, m + cfg.hpbm + 7)
+    offs = torch.from_numpy(st["offsets"])
+    sign = torch.from_numpy(st["sign"])
+    ifr = grid_columns(torch.from_numpy(if0)[None], 0, 512)
+    assert ifr[0, 0].tolist() == [510, 511, 0, 1, 2]
+    assert ifr[0, 4].tolist() == [509, 510, 511, 511, 511]
+    got = sync_grid_plain(ps, ifr, offs, sign, lo=0, width=512,
+                          dtype=dtype)[0].numpy()
+    ein = coarse_score_grid(ps, torch.from_numpy(if0)[None], offs, sign,
+                            impl="einsum", f_window=fw,
+                            dtype=dtype)[0].numpy()
+    j = np.asarray(jax_grid(jnp.asarray(ps[0].numpy()), jnp.asarray(if0),
+                            jnp.asarray(st["offsets"]),
+                            jnp.asarray(st["sign"]), impl="einsum",
+                            f_window=fw, dtype=dtype))
+    for ref in (j, ein):
+        assert got.shape == ref.shape
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got[4, 3], got[4, 4])

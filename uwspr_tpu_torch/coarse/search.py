@@ -4,11 +4,16 @@ peak pick, the dense (freq x lag x model) sync grid and the host engine's
 
 Counterpart of uwspr_tpu/coarse/search.py. ``build_drift_models``,
 ``max_peaks``, ``Candidates`` and ``detect_peaks`` are numpy; they are
-carried over because their JAX module imports jax. The sync grid has both
-forms of ``coarse_score_grid``: ``conv`` (search.py:259-294, the narrowband
+carried over because their JAX module imports jax. The sync grid
+(``coarse_score_grid``): on a CUDA tensor one launch of
+``csrc/sync_grid.cu``, whatever the impl (``sync_grid``, counted in
+``KERNEL_LAUNCHES``), which sums the 162 one-hot taps directly; on the CPU
+both forms of the JAX module, ``conv`` (search.py:259-294, the narrowband
 device path), one dilated 2-D correlation per A/B powersum plane, and the
-im2col ``einsum`` (search.py:295-339) that the host ``CoarseSearch`` and
-the wideband device engine use. The drift-model selection lives in
+im2col ``einsum`` (search.py:295-339) of the host ``CoarseSearch`` and the
+wideband device engine. ``sync_grid_plain`` repeats the kernel's
+arithmetic (a loop over the symbols of gathers, summed in ascending k) and
+counts its calls in ``PLAIN_CALLS``. The drift-model selection lives in
 ``uwspr_tpu_torch.ops.select`` (the CUDA kernel and its plain version).
 """
 
@@ -26,6 +31,7 @@ from uwspr_tpu_torch.models import slm
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power
 from uwspr_tpu_torch.protocol.constants import SYNC_VECTOR
+from uwspr_tpu_torch.utils import cuda_build
 
 MODE_LINEAR = 0
 MODE_NONLINEAR = 1
@@ -36,6 +42,20 @@ _N_SHIFTS = _D_MAX - _D_MIN + 1
 # bytes of im2col copies per chunk of windows (113 MB per window at full
 # width in float32, 3.6 GB per plane at W = 32)
 _IM2COL_BYTES = 1 << 30
+# the sync-grid kernel's lags and models (one thread a model)
+_KERNEL_LAGS = 26
+MAX_MODELS = 128
+
+# launches of the sync-grid kernel onto a stream (a CUDA graph's capture
+# only records one) / calls of its plain version, in this process
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counters() -> None:
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
 
 
 @dataclass
@@ -159,6 +179,37 @@ def powersum_planes(ps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return A, B
 
 
+def grid_columns(if0: torch.Tensor, lo: int, width: int) -> torch.Tensor:
+    """(B, C) candidate bins -> (B, C, 5) window columns if0 + (-2..2) -
+    lo, indexed as the JAX gather does: a negative column wraps once (a
+    padded lane at bin 0 reads the top columns), then every column clamps
+    to [0, width) (at wideband a lane at the top bin reaches past it)."""
+    ifr = (if0[..., None] + torch.arange(-2, 3, device=if0.device)
+           - lo).long()
+    return torch.where(ifr < 0, ifr + width, ifr).clamp(0, width - 1)
+
+
+def grid_planes(ps: torch.Tensor, lo: int, width: int, dtype: str
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The A/B powersum planes over spectrum columns [lo, lo + width),
+    rounded to bf16 and back for ``dtype="bf16"``."""
+    A, B = powersum_planes(ps)
+    A, B = A[..., lo:lo + width], B[..., lo:lo + width]
+    if dtype == "bf16":
+        return A.to(torch.bfloat16).float(), B.to(torch.bfloat16).float()
+    return A, B
+
+
+def grid_window(size: int, f_window: tuple[int, int] | None
+                ) -> tuple[int, int]:
+    """(lo, width) of the columns [lo, lo + width) that ``f_window`` keeps
+    of a ``size``-column spectrum (all of them for None)."""
+    if f_window is None:
+        return 0, size
+    lo, hi = max(f_window[0], 0), min(f_window[1], size)
+    return lo, hi - lo
+
+
 def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
                       offsets: torch.Tensor, sync_sign: torch.Tensor, *,
                       n_lags: int = 26, impl: str = "conv",
@@ -170,8 +221,9 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
     offsets: (M, 162) int bin offsets; sync_sign: (162,) +/-1.
     Returns sync (B, C, 5, n_lags, M) float32 = ss / pow.
 
-    ss[b, m, w, f] = sum_k sign[k] * A[b, w + 2k, f + offs[m, k]]. Two
-    forms, equal up to f32 summation order (search.py:220-238):
+    ss[b, m, w, f] = sum_k sign[k] * A[b, w + 2k, f + offs[m, k]]. On a
+    CUDA tensor the ``sync_grid`` kernel computes it for either impl. On
+    the CPU two forms, equal up to f32 summation order (search.py:220-238):
 
     - ``impl="conv"``: one correlation with row dilation 2 (the half-symbol
       lag stride) per plane, as search.py:259-294 does with
@@ -180,45 +232,57 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
       f + d] contracted against the one-hot (symbol, shift) weights
       (search.py:295-339), the host CoarseSearch's form.
 
-    Both run under ``exact_f32`` on the card (no TF32). ``dtype="bf16"``
-    rounds the A/B planes to bf16 (the one-hot +-1/0 weights are exact) and
-    still accumulates in f32. ``f_window=(lo, hi)`` scores only columns
-    [lo, hi). Candidate columns if0 + (-2..2) index as the JAX gather does:
-    a negative column wraps once (a padded lane at bin 0 reads the top
-    columns) and then every column clamps to the window (at wideband a lane
-    at the top bin reaches past it). The einsum builds its im2col copies
-    for at most _IM2COL_BYTES of windows at a time."""
+    ``dtype="bf16"`` rounds the A/B planes to bf16 (the one-hot +-1/0
+    weights are exact) and still accumulates in f32. ``f_window=(lo, hi)``
+    scores only columns [lo, hi). Candidate columns index as
+    ``grid_columns`` says."""
     if impl not in ("conv", "einsum"):
         raise ValueError(f"coarse grid impl {impl!r}")
-    size = ps.shape[-1]
-    A, B = powersum_planes(ps)
-    lo, hi = 0, size
-    if f_window is not None:
-        lo, hi = max(f_window[0], 0), min(f_window[1], size)
-        A, B = A[..., lo:hi], B[..., lo:hi]
-    if dtype == "bf16":
-        A = A.to(torch.bfloat16).float()
-        B = B.to(torch.bfloat16).float()
-    elif dtype != "f32":
+    if dtype not in ("f32", "bf16"):
         raise ValueError(f"grid dtype {dtype!r}")
+    lo, width = grid_window(ps.shape[-1], f_window)
+    ifr = grid_columns(if0, lo, width)
+    if ps.device.type == "cuda":
+        return sync_grid(ps, ifr, offsets, sync_sign, lo=lo, width=width,
+                         n_lags=n_lags, dtype=dtype)
+    A, B = grid_planes(ps, lo, width, dtype)
+    form = conv_grid if impl == "conv" else einsum_grid
+    return form(A, B, ifr, offsets, sync_sign, n_lags=n_lags)
+
+
+def _one_hot(offsets, sync_sign):
     onehot = F.one_hot((offsets - _D_MIN).long(), _N_SHIFTS).float()
-    W_ss = onehot * sync_sign.float()[None, :, None]            # (M,162,D)
-    # per-candidate frequency gather ifr = if0 + (-2..2), window relative
-    width = hi - lo
-    ifr = (if0[..., None] + torch.arange(-2, 3, device=ps.device) - lo).long()
-    ifr = torch.where(ifr < 0, ifr + width, ifr).clamp(0, width - 1)
-    bidx = torch.arange(ps.shape[0], device=ps.device)[:, None, None]
-    if impl == "conv":
-        Ax = F.pad(A, (_D_MAX, -_D_MIN))[:, None]              # (B,1,n,w+12)
-        Bx = F.pad(B, (_D_MAX, -_D_MIN))[:, None]
-        ss = F.conv2d(Ax, W_ss[:, None], dilation=(2, 1))[:, :, :n_lags]
-        pw = F.conv2d(Bx, onehot[:, None], dilation=(2, 1))[:, :, :n_lags]
-        ss_c = ss[bidx, :, :, ifr]                             # (B,C,5,M,w)
-        pw_c = pw[bidx, :, :, ifr]
-        return (ss_c / pw_c).transpose(-1, -2).float()         # (B,C,5,w,M)
-    n = ps.shape[-2]
+    return onehot, onehot * sync_sign.float()[None, :, None]   # (M,162,D)
+
+
+def conv_grid(A: torch.Tensor, B: torch.Tensor, ifr: torch.Tensor,
+              offsets: torch.Tensor, sync_sign: torch.Tensor, *,
+              n_lags: int = 26) -> torch.Tensor:
+    """The ``conv`` form on planes (B, n, width) (``grid_planes``) at window
+    columns ifr (B, C, 5) (``grid_columns``): one dilated correlation a
+    plane over every column, then the gather and ss / pw."""
+    onehot, W_ss = _one_hot(offsets, sync_sign)
+    bidx = torch.arange(A.shape[0], device=A.device)[:, None, None]
+    Ax = F.pad(A, (_D_MAX, -_D_MIN))[:, None]                  # (B,1,n,w+12)
+    Bx = F.pad(B, (_D_MAX, -_D_MIN))[:, None]
+    ss = F.conv2d(Ax, W_ss[:, None], dilation=(2, 1))[:, :, :n_lags]
+    pw = F.conv2d(Bx, onehot[:, None], dilation=(2, 1))[:, :, :n_lags]
+    ss_c = ss[bidx, :, :, ifr]                                 # (B,C,5,M,w)
+    pw_c = pw[bidx, :, :, ifr]
+    return (ss_c / pw_c).transpose(-1, -2).float()             # (B,C,5,w,M)
+
+
+def einsum_grid(A: torch.Tensor, B: torch.Tensor, ifr: torch.Tensor,
+                offsets: torch.Tensor, sync_sign: torch.Tensor, *,
+                n_lags: int = 26) -> torch.Tensor:
+    """The im2col ``einsum`` form on the same operands as ``conv_grid``,
+    its im2col copies built for at most _IM2COL_BYTES of windows at a
+    time."""
+    n, width = A.shape[-2:]
     if n < 2 * 162 + n_lags - 2:
         raise ValueError(f"{n} spectrum rows are too few for {n_lags} lags")
+    onehot, W_ss = _one_hot(offsets, sync_sign)
+    bidx = torch.arange(A.shape[0], device=A.device)[:, None, None]
 
     def im2col(X):                  # (b, n, w) -> (b, lags, 162, D, w)
         pad = F.pad(X, (_N_SHIFTS, _N_SHIFTS))
@@ -229,13 +293,110 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
                            dim=1)
     step = max(1, _IM2COL_BYTES // (n_lags * 162 * _N_SHIFTS * width * 4))
     out = []
-    for b0 in range(0, ps.shape[0], step):
+    for b0 in range(0, A.shape[0], step):
         sl = slice(b0, b0 + step)
         ss = torch.einsum("mkd,bwkdf->bwmf", W_ss, im2col(A[sl]))  # (b,w,M,f)
         pw = torch.einsum("mkd,bwkdf->bwmf", onehot, im2col(B[sl]))
         bi, fi = bidx[:ss.shape[0]], ifr[sl]
         out.append(ss[bi, :, :, fi] / pw[bi, :, :, fi])          # (b,C,5,w,M)
     return torch.cat(out).float()
+
+
+def _check_grid(ps, ifr, offsets, sync_sign, lo, width, n_lags, dtype):
+    if dtype not in ("f32", "bf16"):
+        raise ValueError(f"grid dtype {dtype!r}")
+    if ps.dim() != 3 or ps.dtype != torch.float32:
+        raise ValueError(f"ps must be (B, n, size) float32, got "
+                         f"{tuple(ps.shape)} {ps.dtype}")
+    W, n, size = ps.shape
+    if ifr.dim() != 3 or ifr.shape[0] != W or ifr.shape[2] != 5:
+        raise ValueError(f"ifr {tuple(ifr.shape)} is not ({W}, C, 5)")
+    if offsets.dim() != 2 or offsets.shape[1] != 162 \
+            or sync_sign.shape != (162,):
+        raise ValueError(f"offsets {tuple(offsets.shape)} / sign "
+                         f"{tuple(sync_sign.shape)} are not (M, 162) / (162,)")
+    if not (0 <= lo and 1 <= width and lo + width <= size):
+        raise ValueError(f"columns [{lo}, {lo + width}) outside the "
+                         f"spectrum's {size}")
+    if n < 2 * 161 + n_lags:
+        raise ValueError(f"{n} spectrum rows are too few for {n_lags} lags")
+    devs = {t.device for t in (ps, ifr, offsets, sync_sign)}
+    if len(devs) != 1:
+        raise ValueError("sync grid inputs lie on different devices")
+
+
+def sync_grid(ps: torch.Tensor, ifr: torch.Tensor, offsets: torch.Tensor,
+              sync_sign: torch.Tensor, *, lo: int, width: int,
+              n_lags: int = 26, dtype: str = "f32") -> torch.Tensor:
+    """The (B, C, 5, n_lags, M) f32 grid ss / pw of ``coarse_score_grid``
+    from the power spectra ps (B, n, size) at window columns ifr (B, C, 5)
+    (``grid_columns``) of the window [lo, lo + width). For a CUDA tensor
+    one launch of ``csrc/sync_grid.cu`` on the current stream (26 lags, at
+    most MAX_MODELS models, offsets within [-6, 6] as build_drift_models
+    guarantees), counted in ``KERNEL_LAUNCHES``; for a CPU tensor
+    ``sync_grid_plain``. Both give the same bits."""
+    global KERNEL_LAUNCHES
+    _check_grid(ps, ifr, offsets, sync_sign, lo, width, n_lags, dtype)
+    if ps.device.type == "cpu":
+        return sync_grid_plain(ps, ifr, offsets, sync_sign, lo=lo,
+                               width=width, n_lags=n_lags, dtype=dtype)
+    if ps.device.type != "cuda":
+        raise ValueError(f"sync_grid: unsupported device {ps.device}")
+    W, n, size = ps.shape
+    C = ifr.shape[1]
+    M = offsets.shape[0]
+    if n_lags != _KERNEL_LAGS or M > MAX_MODELS:
+        raise ValueError(f"sync_grid: the kernel takes {_KERNEL_LAGS} lags "
+                         f"and at most {MAX_MODELS} models, got {n_lags} "
+                         f"and {M}")
+    x = ps.contiguous()
+    cols = ifr.to(torch.int32).contiguous()
+    shifts = (offsets - _D_MIN).to(torch.uint8).t().contiguous()
+    sign = sync_sign.float().contiguous()
+    out = torch.empty((W, C, 5, n_lags, M), dtype=torch.float32,
+                      device=ps.device)
+    lib = cuda_build.load_library()
+    code = lib.uwspr_sync_grid(
+        x.data_ptr(), W, n, size, lo, width, cols.data_ptr(), 5 * C,
+        shifts.data_ptr(), M, sign.data_ptr(), int(dtype == "bf16"),
+        out.data_ptr(), torch.cuda.current_stream(ps.device).cuda_stream)
+    cuda_build.check_launch("uwspr_sync_grid", code)
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
+    return out
+
+
+def sync_grid_plain(ps: torch.Tensor, ifr: torch.Tensor,
+                    offsets: torch.Tensor, sync_sign: torch.Tensor, *,
+                    lo: int, width: int, n_lags: int = 26,
+                    dtype: str = "f32") -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch, on any device: the planes of
+    ``grid_planes``, zero outside the window; then for k = 0..161 in turn
+    the plane values at rows 2k + w and columns ifr + offs[:, k], added to
+    (pw) or, times sign[k], to (ss) f32 sums that start at 0; then ss / pw.
+    Counted in ``PLAIN_CALLS``."""
+    global PLAIN_CALLS
+    _check_grid(ps, ifr, offsets, sync_sign, lo, width, n_lags, dtype)
+    PLAIN_CALLS += 1
+    W = ps.shape[0]
+    C = ifr.shape[1]
+    M = offsets.shape[0]
+    A, B = grid_planes(ps, lo, width, dtype)
+    Ap = F.pad(A, (-_D_MIN, _D_MAX))
+    Bp = F.pad(B, (-_D_MIN, _D_MAX))
+    base = (ifr.reshape(W, 5 * C, 1) - _D_MIN).long()
+    offs = offsets.long()
+    sign = sync_sign.float()
+    ss = torch.zeros((W, n_lags, 5 * C * M), dtype=torch.float32,
+                     device=ps.device)
+    pw = torch.zeros_like(ss)
+    for k in range(162):
+        idx = (base + offs[:, k]).reshape(W, 1, -1).expand(-1, n_lags, -1)
+        rows = slice(2 * k, 2 * k + n_lags)
+        ss = ss + sign[k] * torch.gather(Ap[:, rows], 2, idx)
+        pw = pw + torch.gather(Bp[:, rows], 2, idx)
+    return (ss / pw).reshape(W, n_lags, C, 5, M).permute(
+        0, 2, 3, 1, 4).contiguous()
 
 
 class CoarseSearch:
@@ -303,7 +464,10 @@ class CoarseSearch:
         )
 
 
-__all__ = ["Candidates", "CoarseSearch", "DriftModelBank", "MODE_LINEAR",
-           "MODE_NONLINEAR", "build_drift_models", "coarse_score_grid",
-           "detect_peaks", "max_peaks", "powersum_planes",
-           "smoothed_snr_spectrum"]
+__all__ = ["Candidates", "CoarseSearch", "DriftModelBank", "KERNEL_LAUNCHES",
+           "MAX_MODELS", "MODE_LINEAR", "MODE_NONLINEAR", "PLAIN_CALLS",
+           "build_drift_models", "coarse_score_grid", "conv_grid",
+           "detect_peaks", "einsum_grid", "grid_columns", "grid_planes",
+           "grid_window", "max_peaks", "powersum_planes",
+           "reset_counters", "smoothed_snr_spectrum", "sync_grid",
+           "sync_grid_plain"]

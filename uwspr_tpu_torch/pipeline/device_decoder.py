@@ -379,8 +379,9 @@ class DeviceDecoder:
         marks.mark("coarse", z_all)
         sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=m, col0=cb0)
         valid, if0, snr = self._peaks(sm)
-        # conv for narrowband, the im2col GEMM for wideband; bf16 operands
-        # for the einsum (jit_decoder.py:350-361); explicit values stand
+        # on the CPU conv for narrowband, the im2col GEMM for wideband (on a
+        # card the sync-grid kernel computes either); bf16 planes for the
+        # einsum (jit_decoder.py:350-361); explicit values stand
         grid_impl = cfg.grid_impl
         if grid_impl == "auto":
             grid_impl = "einsum" if cfg.hpbm > 32 else "conv"
