@@ -83,7 +83,7 @@ Phases, each raising on failure (nothing is caught):
    with_serving_defaults(PipelineConfig(coarse=CoarseConfig(
    halfbandwidth=187, maxfreqs=200)), 32) on scripts/bench_matrix.py's
    scene (32 windows, 10 frames each across +/-170 Hz at -15 dB, seed 3):
-   320/320 decoded with the einsum grid on bf16 operands; again with
+   320/320 decoded with the sync grid on bf16 planes; again with
    stft_impl="pallas" (the STFT kernel at (32, 348, 512)), the same
    message sets; the host engine on 2 of the windows
    gives the same message sets; ms/window by CUDA events and wall, peak
@@ -117,8 +117,8 @@ Phases, each raising on failure (nothing is caught):
 14. timing: each kernel, its plain version and, where one exists, the one
    PyTorch call that computes the same function (torch.stft for the STFT,
    the plain version's complex torch.bmm for the probe; none for the
-   selection walk, the Fano search and the OSD, whose timing is phase
-   12's) at the paths' shapes, with CUDA
+   selection walk, the Fano search, the sync grid and the OSD, whose
+   timing is phase 12's) at the paths' shapes, with CUDA
    events, in turns plain, kernel, library, library, kernel, plain, each
    turn behind a spin kernel so that calls run back to back on the card;
    kernel and plain are also held equal on those inputs. Each kernel's bound is
@@ -1740,7 +1740,7 @@ def phase_wideband(card):
     log(f"[wideband] hpbm {cfg.coarse.hpbm}, C = {dec.n_cand}, columns "
         f"{dec._cols}, caps cand/refine/fano {d.cand_compact_lanes}/"
         f"{d.refine_max_lanes}/{d.fano_compact_lanes}, stft "
-        f"{cfg.coarse.stft_impl}, grid auto (einsum, bf16)")
+        f"{cfg.coarse.stft_impl}, grid bf16 planes")
     t0 = time.perf_counter()
     dec.decode_windows_ri(ri_c)
     torch.cuda.synchronize()
@@ -4010,7 +4010,7 @@ def host_grid(hdec, ri):
         sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=cfg.fft_size // 2)
         _, if0, _ = detect_peaks(sm.cpu().numpy(), cfg)
         grid = coarse_score_grid(ps[None], torch.from_numpy(if0)[None].cuda(),
-                                 cs._offsets, cs._sign, impl="einsum")[0]
+                                 cs._offsets, cs._sign)[0]
     return grid.contiguous(), cs._is_nl
 
 
@@ -4451,12 +4451,10 @@ def timing_sync_grid(card, dec, ri_c, sm_mhz):
     (narrow_cycle_w128 and the ring's hop), narrowband W = 32
     (narrow_osd_deep_w32), wideband W = 32 (wide_cycle_w32), each on the
     decoder's own coarse_score_grid call; against sync_grid_plain (bit for
-    bit) and the library form it replaced on the card (cuDNN's dilated
-    conv2d narrowband, the im2col einsum wideband, each with its planes,
-    gathers and division). Bound: the larger of the adds (2 x 162 x 26 a
-    read column, model and lag, at 128 f32 adds a clock an SM) and the
-    shared-memory reads that feed them (one 4-byte word an add at 32 a
-    clock an SM), over the columns a candidate slot reads."""
+    bit). Bound: the larger of the adds (2 x 162 x 26 a read column, model
+    and lag, at 128 f32 adds a clock an SM) and the shared-memory reads
+    that feed them (one 4-byte word an add at 32 a clock an SM), over the
+    columns a candidate slot reads."""
     import torch
 
     from uwspr_tpu_torch.coarse import search
@@ -4478,22 +4476,16 @@ def timing_sync_grid(card, dec, ri_c, sm_mhz):
         (ps, if0, offs, sign), kw = grid_call(d, x)
         lo, width = search.grid_window(ps.shape[-1], kw["f_window"])
         ifr = search.grid_columns(if0, lo, width)
-        dtype, impl = kw["dtype"], kw["impl"]
+        dtype = kw["dtype"]
         at = dict(lo=lo, width=width, dtype=dtype)
-        form = search.conv_grid if impl == "conv" else search.einsum_grid
-
-        def library():
-            planes = search.grid_planes(ps, lo, width, dtype)
-            return form(*planes, ifr, offs, sign)
         with torch.no_grad(), exact_f32():
             ms, turns, outs = time_turns(
                 [("plain", lambda: search.sync_grid_plain(
                     ps, ifr, offs, sign, **at)),
                  ("kernel", lambda: search.sync_grid(ps, ifr, offs, sign,
-                                                     **at)),
-                 ("library", library)],
-                {"plain": 2, "kernel": 20, "library": 5})
-        k, pl, lib = outs["kernel"], outs["plain"], outs["library"]
+                                                     **at))],
+                {"plain": 2, "kernel": 20})
+        k, pl = outs["kernel"], outs["plain"]
         require(torch.equal(k.view(torch.int32), pl.view(torch.int32)),
                 f"sync_grid {name}: kernel differs from plain")
         W, C, _, L, M = k.shape
@@ -4506,26 +4498,19 @@ def timing_sync_grid(card, dec, ri_c, sm_mhz):
         bnd = max((t_add, "operations", "f32 adds"),
                   (t_lds, "operations", "shared reads"),
                   (t_hbm, "bytes", "HBM"))
-        diff = float((lib - pl).abs().nan_to_num().max())
-        what = "cuDNN conv2d" if impl == "conv" else "im2col copies + SGEMM"
         e = entry("sync_grid", "sync_grid.cu",
                   "none: XLA conv / einsum (uwspr_tpu/coarse/search.py:259)",
-                  [W, C, 5, L, M], ms["kernel"], ms["plain"], bnd,
-                  f"the {impl} form ({what}), its planes, gathers and "
-                  f"division", ms["library"], 0.0)
+                  [W, C, 5, L, M], ms["kernel"], ms["plain"], bnd, None,
+                  None, 0.0)
         e.update(columns_read=cols, add_bound_ms=t_add, shared_bound_ms=t_lds,
-                 ms_per_window=ms["kernel"] / W,
-                 library_ms_per_window=ms["library"] / W,
-                 library_max_abs_diff=diff)
+                 ms_per_window=ms["kernel"] / W)
         log(f"[timing] {card}: sync_grid {name} ({W}, {C}, 5, {L}, {M}), "
             f"{dtype} planes, {cols} columns read: kernel "
             f"{ms['kernel']:.4f} ms ({ms['kernel'] / W:.5f} a window), plain "
-            f"{ms['plain']:.4f} ms, library ({impl}) {ms['library']:.4f} ms "
-            f"({ms['library'] / W:.5f} a window); bounds: adds {t_add:.4f} "
-            f"ms, shared reads {t_lds:.4f} ms, HBM {t_hbm:.4f} ms; "
+            f"{ms['plain']:.4f} ms; bounds: adds {t_add:.4f} ms, shared "
+            f"reads {t_lds:.4f} ms, HBM {t_hbm:.4f} ms; "
             f"{100 * e['bound_share']:.1f} % of the largest (turns "
-            f"{fmt_turns(turns)}); kernel == plain, bit-exact; library "
-            f"within {diff:.3g} of plain")
+            f"{fmt_turns(turns)}); kernel == plain, bit-exact")
         out[name] = e
     return out
 

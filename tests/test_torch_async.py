@@ -206,6 +206,7 @@ def fano_scene(seed=7, decodable=SCENES["default"]):
         "sync2": rng.uniform(0, 1, (W, C, J)).astype(np.float32),
         "gate": gate,
         "deint": deint,
+        "refine_overflow": np.zeros(W, np.int64),
     }
 
 

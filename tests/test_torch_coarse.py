@@ -1,7 +1,8 @@
 """uwspr_tpu_torch coarse front against the JAX package: drift-model bank,
-STFT power, smoothed SNR spectrum, peak pick, SLM drift, the conv sync grid
-and the whole coarse stage; for the host engine the einsum sync grid, the
-host peak pick, ``CoarseSearch`` and the Pallas-STFT configuration.
+STFT power, smoothed SNR spectrum, peak pick, SLM drift, the sync grid
+(on the CPU the card kernel's plain version) against the JAX conv and
+einsum forms, and the whole coarse stage; for the host engine the host
+peak pick, ``CoarseSearch`` and the Pallas-STFT configuration.
 
 Inputs are made with numpy from a seed and go through both packages on the
 CPU. Tolerances, stated per comparison: the bank, peaks and integer fields
@@ -140,11 +141,12 @@ def test_conv_grid_matches(dtype):
                                          ("einsum", "bf16")])
 def test_plain_grid_matches_forms(impl, dtype):
     """sync_grid_plain, the card kernel's arithmetic (162 gathers summed in
-    ascending k), against the CPU form of coarse_score_grid: the conv at
-    the narrowband column window, the einsum at the full 512 columns with
-    a lane at bin 0 (its columns -2 and -1 wrap to the top) and one at the
-    top bin (its columns past 511 clamp). Both sum the same 162 f32 terms
-    of each cell in another order: a few ulps of ss and pw, rtol 1e-5."""
+    ascending k), against the JAX coarse_score_grid's form, window by
+    window: the conv at the narrowband column window, the einsum at the
+    full 512 columns with a lane at bin 0 (its columns -2 and -1 wrap to
+    the top) and one at the top bin (its columns past 511 clamp). Both sum
+    the same 162 f32 terms of each cell in another order: a few ulps of ss
+    and pw, rtol 1e-5."""
     bank = tsearch.build_drift_models(CFG)
     offs = torch.from_numpy(bank.offsets)
     sign = torch.from_numpy(2.0 * np.asarray(jsearch.SYNC_VECTOR,
@@ -166,11 +168,14 @@ def test_plain_grid_matches_forms(impl, dtype):
         assert ifr[0, 2].tolist() == [509, 510, 511, 511, 511]
     got = tsearch.sync_grid_plain(ps, ifr, offs, sign, lo=lo, width=width,
                                   dtype=dtype).numpy()
-    ref = tsearch.coarse_score_grid(ps, if0, offs, sign, impl=impl,
-                                    f_window=fw, dtype=dtype).numpy()
-    assert got.shape == ref.shape
-    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
-    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    for w in range(ps.shape[0]):
+        ref = np.asarray(jsearch.coarse_score_grid(
+            jnp.asarray(ps[w].numpy()), jnp.asarray(if0[w].numpy()),
+            jnp.asarray(bank.offsets), jnp.asarray(sign.numpy()), impl=impl,
+            f_window=fw, dtype=dtype))
+        assert got[w].shape == ref.shape
+        np.testing.assert_array_equal(np.isnan(got[w]), np.isnan(ref))
+        np.testing.assert_allclose(got[w], ref, rtol=1e-5, atol=1e-6)
 
 
 def test_plain_grid_equal_offset_rows_score_equal():
@@ -216,7 +221,7 @@ def test_coarse_stage_matches():
 
 
 # ---------------------------------------------------------------------------
-# host engine: einsum grid, peak pick, CoarseSearch, the Pallas STFT config
+# host engine: full-width grid, peak pick, CoarseSearch, the Pallas STFT config
 # ---------------------------------------------------------------------------
 
 SCENES = np.stack([Z[0], _windows(1, seed=8)[0]])
@@ -225,8 +230,9 @@ HOST_CFG = CoarseConfig(maxfreqs=13)
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_einsum_grid_matches(dtype):
-    """The im2col einsum form at full 512-column width, as the host
-    CoarseSearch calls it: 162-term f32 sums in another order, rtol 1e-5."""
+    """The port's CPU grid at full 512-column width, as the host
+    CoarseSearch calls it, against the JAX einsum form: 162-term f32 sums
+    in another order, rtol 1e-5."""
     ps = np.array(jax_stft(jnp.asarray(Z), n_ffts=CFG.n_ffts,
                            size=CFG.fft_size, hop=CFG.spb // 2))
     bank = tsearch.build_drift_models(CFG)
@@ -235,7 +241,7 @@ def test_einsum_grid_matches(dtype):
     got = tsearch.coarse_score_grid(
         torch.from_numpy(ps), torch.from_numpy(if0),
         torch.from_numpy(bank.offsets), torch.from_numpy(sign),
-        impl="einsum", dtype=dtype).numpy()
+        dtype=dtype).numpy()
     for w in range(2):
         ref = np.asarray(jsearch.coarse_score_grid(
             jnp.asarray(ps[w]), jnp.asarray(if0[w]),

@@ -14,9 +14,9 @@ Three kinds of test:
   but for the repaired arecord read) against their originals' ASTs, up to
   docstrings and the package their imports name.
 - separation: a static walk of the AST of every port source file (and of
-  chip_smoke.py and the port's scripts torch_stages.py,
-  torch_async_readings.py, torch_osd_kernel.py and
-  torch_select_fano_tuning.py) for imports of
+  chip_smoke.py and the port's scripts torch_async_readings.py,
+  torch_osd_decodes.py, torch_osd_kernel.py, torch_probe_tiling.py,
+  torch_select_fano_tuning.py and torch_trace_stages.py) for imports of
   ``uwspr_tpu`` or ``jax`` and paths into ``uwspr_tpu/``.
 
 ``jax_config`` turns a port config into the JAX package's config of the
@@ -390,10 +390,12 @@ def test_audio_copy_equal_except_the_arecord_read():
 PORT_FILES = sorted(
     [p.relative_to(ROOT).as_posix()
      for p in (ROOT / "uwspr_tpu_torch").rglob("*.py")]
-    + ["chip_smoke.py", "scripts/torch_stages.py",
-       "scripts/torch_async_readings.py",
+    + ["chip_smoke.py", "scripts/torch_async_readings.py",
+       "scripts/torch_osd_decodes.py",
        "scripts/torch_osd_kernel.py",
-       "scripts/torch_select_fano_tuning.py"])
+       "scripts/torch_probe_tiling.py",
+       "scripts/torch_select_fano_tuning.py",
+       "scripts/torch_trace_stages.py"])
 # a "file:line" reference to the TPU kernel a port kernel replaces is text,
 # not a path the program reads
 _CITATION = re.compile(r"^uwspr_tpu/[\w/]+\.py:\d+$")

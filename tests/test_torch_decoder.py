@@ -207,6 +207,54 @@ def test_no_cand_compaction_matches_jax(refine_max_lanes):
         assert decoded == [1, 1] and not t.fano_overflow.any()
 
 
+def lane_run(**knobs):
+    """(prefano dict, typed output, decoder) of the port alone on RI2 at
+    PLAIN with the given lane knobs."""
+    cfg = dc.replace(PLAIN, demod=dc.replace(PLAIN.demod, **knobs))
+    tdec = DeviceDecoder(cfg, device="cpu")
+    ri = torch.from_numpy(RI2)
+    with torch.no_grad():
+        pre = tdec.prefano(ri)
+    return pre, tdec.decode_ri_batch(ri), tdec
+
+
+@pytest.fixture(scope="module")
+def all_lanes_run():
+    return lane_run()
+
+
+@pytest.mark.parametrize("knobs", ["none", "refine", "cand"])
+def test_lane_paths_agree_without_a_binding_cap(knobs, all_lanes_run):
+    """The refinement's one lane path in its three configurations, with
+    every cap at W*C lanes so that none binds: the same prefano keys and a
+    (W,) refine_overflow of 0, and the all-lanes configuration's decoded
+    messages, with freq, shift, drift and mode equal on the decoded
+    candidates, snr and sync at the module's tolerances. No JAX."""
+    L = RI2.shape[0] * DeviceDecoder(PLAIN, device="cpu").n_cand
+    pre0, ref, _ = all_lanes_run
+    pre, t, tdec = lane_run(**{
+        "none": {},
+        "refine": {"refine_max_lanes": L},
+        "cand": {"cand_compact_lanes": L, "refine_max_lanes": L}}[knobs])
+    assert set(pre) == set(pre0)
+    ovf = pre["refine_overflow"]
+    assert ovf.shape == (2,) and ovf.dtype == torch.int64
+    assert not ovf.any()
+    assert ([tdec.messages(t.window(w)) for w in range(2)]
+            == [tdec.messages(ref.window(w)) for w in range(2)]
+            == [["VE3EMB FN25 30"]] * 2)
+    for key in ("valid", "success", "fano_overflow"):
+        np.testing.assert_array_equal(getattr(t, key), getattr(ref, key),
+                                      err_msg=key)
+    s = ref.success
+    for key in ("freq", "shift", "drift", "mode"):
+        np.testing.assert_array_equal(getattr(t, key)[s],
+                                      getattr(ref, key)[s], err_msg=key)
+    v = ref.valid
+    np.testing.assert_allclose(t.snr[v], ref.snr[v], rtol=1e-4)
+    np.testing.assert_allclose(t.sync[s], ref.sync[s], atol=1e-3)
+
+
 def test_per_window_fano_cap_matches_jax():
     """fano_compact_lanes == 0: at most fano_max_lanes gated lanes per
     window and phase. At maxcycles 1 every Fano lane times out, so phase 2

@@ -195,6 +195,7 @@ def test_decoder_tally_counts_stopped_lanes_on_card():
         "sync2": rng.uniform(0, 1, (W, C, J)).astype(np.float32),
         "gate": gate.reshape(W, C, J),
         "deint": sym.reshape(W, C, J, 162),
+        "refine_overflow": np.zeros(W, np.int64),
     }
     cfg = PipelineConfig(demod=DemodConfig(n_jiggles=J, maxcycles=MC,
                                            fano_compact_lanes=2 * W))

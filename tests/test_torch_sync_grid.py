@@ -127,18 +127,16 @@ def test_kernel_matches_plain_on_card(W, C, wide, monkeypatch):
                                   dtype=dtype)
     assert got.shape == want.shape == (W, C, 5, 26, offs.shape[0])
     assert torch.equal(_bits(got), _bits(want))
-    # coarse_score_grid takes the kernel for either impl, and neither the
-    # library convolution nor the einsum
+    # coarse_score_grid takes the kernel, and neither the library
+    # convolution nor the einsum
     def refuse(*a, **k):
         raise AssertionError("library call on the card's grid path")
     monkeypatch.setattr(search.F, "conv2d", refuse)
     monkeypatch.setattr(search.torch, "einsum", refuse)
-    for impl in ("conv", "einsum"):
-        g = search.coarse_score_grid(
-            ps, if0, offs, sign, impl=impl, dtype=dtype,
-            f_window=(lo, lo + width))
-        assert torch.equal(_bits(g), _bits(want))
-    assert search.KERNEL_LAUNCHES == 3
+    g = search.coarse_score_grid(ps, if0, offs, sign, dtype=dtype,
+                                 f_window=(lo, lo + width))
+    assert torch.equal(_bits(g), _bits(want))
+    assert search.KERNEL_LAUNCHES == 2
 
 
 @pytest.mark.cuda

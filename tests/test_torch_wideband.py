@@ -7,18 +7,19 @@ at -18 dB (seed 0), one per window, decoded as one batch of two windows at
 CoarseConfig(halfbandwidth=187, maxfreqs=32), maxcycles 200 and 3 jiggles;
 both on the CPU (the port with its kernels' plain versions).
 
-- grid_impl "auto" resolves to the im2col einsum with bf16 operands
-  (f32 sums of bf16-rounded planes), and grid_dtype "f32" is honoured:
+- grid_dtype "auto" resolves to bf16 planes, as where the JAX program
+  takes the im2col einsum (f32 sums of bf16-rounded planes), and
+  grid_dtype "f32" is honoured:
   messages, valid, success, fano counters, and on valid lanes the coarse
   selection (freq, shift, drift, mode of the selected model) equal; the
   decoded candidates' refined fields equal as in test_torch_decoder.py.
-- coarse_score_grid(impl="einsum", dtype="bf16", f_window=(-7, 519)) on one
-  spectrum against the JAX function, with candidate bins at both edges of
-  the spectrum and a padded lane (bin 511, whose columns run past the
-  top): within 1e-5 absolute (sums of 162 terms taken in another order;
-  the grid is a ratio in [-1, 1]), NaN at the same cells; and
+- coarse_score_grid(dtype="bf16", f_window=(-7, 519)) on one spectrum
+  against the JAX function's einsum form, with candidate bins at both
+  edges of the spectrum and a padded lane (bin 511, whose columns run past
+  the top): within 1e-5 absolute (sums of 162 terms taken in another
+  order; the grid is a ratio in [-1, 1]), NaN at the same cells; and
   sync_grid_plain (the card kernel's arithmetic) on the same lanes, f32
-  and bf16 planes, against the JAX grid and the einsum form to the same
+  and bf16 planes, against the JAX grid and coarse_score_grid to the same
   tolerance.
 """
 
@@ -102,7 +103,7 @@ def test_wideband_grid_matches_jax():
     assert fw == (-7, 519)
     t = coarse_score_grid(ps[None], torch.from_numpy(if0)[None],
                           torch.from_numpy(st["offsets"]),
-                          torch.from_numpy(st["sign"]), impl="einsum",
+                          torch.from_numpy(st["sign"]),
                           f_window=fw, dtype="bf16")[0].numpy()
     j = np.asarray(jax_grid(jnp.asarray(ps.numpy()), jnp.asarray(if0),
                             jnp.asarray(st["offsets"]),
@@ -121,9 +122,9 @@ def test_wideband_grid_matches_jax():
 def test_wideband_plain_grid_matches(dtype):
     """sync_grid_plain at the wideband window (-7, 519), clamped to the 512
     columns, on lanes at both edges (bin 0 wraps, bins 510 and 511 clamp
-    past the top): within 1e-5 absolute of the JAX grid and of the einsum
-    form (the same 162 f32 terms a cell summed in another order), NaN at
-    the same cells."""
+    past the top): within 1e-5 absolute of the JAX einsum grid (the same
+    162 f32 terms a cell summed in another order) and of coarse_score_grid,
+    NaN at the same cells."""
     cfg = WIDEBAND
     m = cfg.fft_size // 2
     ps = stft_power(Z[1], n_ffts=cfg.n_ffts, size=cfg.fft_size,
@@ -139,8 +140,7 @@ def test_wideband_plain_grid_matches(dtype):
     got = sync_grid_plain(ps, ifr, offs, sign, lo=0, width=512,
                           dtype=dtype)[0].numpy()
     ein = coarse_score_grid(ps, torch.from_numpy(if0)[None], offs, sign,
-                            impl="einsum", f_window=fw,
-                            dtype=dtype)[0].numpy()
+                            f_window=fw, dtype=dtype)[0].numpy()
     j = np.asarray(jax_grid(jnp.asarray(ps[0].numpy()), jnp.asarray(if0),
                             jnp.asarray(st["offsets"]),
                             jnp.asarray(st["sign"]), impl="einsum",

@@ -5,16 +5,14 @@ peak pick, the dense (freq x lag x model) sync grid and the host engine's
 Counterpart of uwspr_tpu/coarse/search.py. ``build_drift_models``,
 ``max_peaks``, ``Candidates`` and ``detect_peaks`` are numpy; they are
 carried over because their JAX module imports jax. The sync grid
-(``coarse_score_grid``): on a CUDA tensor one launch of
-``csrc/sync_grid.cu``, whatever the impl (``sync_grid``, counted in
-``KERNEL_LAUNCHES``), which sums the 162 one-hot taps directly; on the CPU
-both forms of the JAX module, ``conv`` (search.py:259-294, the narrowband
-device path), one dilated 2-D correlation per A/B powersum plane, and the
-im2col ``einsum`` (search.py:295-339) of the host ``CoarseSearch`` and the
-wideband device engine. ``sync_grid_plain`` repeats the kernel's
-arithmetic (a loop over the symbols of gathers, summed in ascending k) and
-counts its calls in ``PLAIN_CALLS``. The drift-model selection lives in
-``uwspr_tpu_torch.ops.select`` (the CUDA kernel and its plain version).
+(``coarse_score_grid``, through ``sync_grid``): on a CUDA tensor one launch
+of ``csrc/sync_grid.cu`` (counted in ``KERNEL_LAUNCHES``), which sums the
+162 one-hot taps directly; on the CPU ``sync_grid_plain``, which repeats
+the kernel's arithmetic (gathers summed in ascending k) and counts its
+calls in ``PLAIN_CALLS``. The JAX module's ``conv`` and ``einsum`` forms
+(search.py:259-339) sum the same terms in another order. The drift-model
+selection lives in ``uwspr_tpu_torch.ops.select`` (the CUDA kernel and its
+plain version).
 """
 
 from __future__ import annotations
@@ -38,10 +36,11 @@ MODE_NONLINEAR = 1
 
 # offsets d in [-4, 4] cover every drift model at the defaults
 _D_MIN, _D_MAX = -6, 6
-_N_SHIFTS = _D_MAX - _D_MIN + 1
-# bytes of im2col copies per chunk of windows (113 MB per window at full
-# width in float32, 3.6 GB per plane at W = 32)
-_IM2COL_BYTES = 1 << 30
+# PyTorch's intra-op grain: a CPU op on fewer elements runs on the calling
+# thread. sync_grid_plain keeps each op of its loop under it, since an op
+# that takes the thread pool waits at a barrier, which costs tens of ms an
+# op when processes share the cores
+_CPU_GRAIN = 32768
 # the sync-grid kernel's lags and models (one thread a model)
 _KERNEL_LAGS = 26
 MAX_MODELS = 128
@@ -212,7 +211,7 @@ def grid_window(size: int, f_window: tuple[int, int] | None
 
 def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
                       offsets: torch.Tensor, sync_sign: torch.Tensor, *,
-                      n_lags: int = 26, impl: str = "conv",
+                      n_lags: int = 26,
                       f_window: tuple[int, int] | None = None,
                       dtype: str = "f32") -> torch.Tensor:
     """Sync correlation over (candidate, freq+/-2, lag, model).
@@ -221,85 +220,17 @@ def coarse_score_grid(ps: torch.Tensor, if0: torch.Tensor,
     offsets: (M, 162) int bin offsets; sync_sign: (162,) +/-1.
     Returns sync (B, C, 5, n_lags, M) float32 = ss / pow.
 
-    ss[b, m, w, f] = sum_k sign[k] * A[b, w + 2k, f + offs[m, k]]. On a
-    CUDA tensor the ``sync_grid`` kernel computes it for either impl. On
-    the CPU two forms, equal up to f32 summation order (search.py:220-238):
+    ss[b, m, w, f] = sum_k sign[k] * A[b, w + 2k, f + offs[m, k]], summed
+    in ascending k by ``sync_grid``: the kernel on a CUDA tensor, its plain
+    version on the CPU. The JAX module's conv and einsum forms
+    (search.py:220-238) sum the same terms in another order.
 
-    - ``impl="conv"``: one correlation with row dilation 2 (the half-symbol
-      lag stride) per plane, as search.py:259-294 does with
-      conv_general_dilated;
-    - ``impl="einsum"``: the im2col gather XA[b, w, k, d, f] = A[b, w + 2k,
-      f + d] contracted against the one-hot (symbol, shift) weights
-      (search.py:295-339), the host CoarseSearch's form.
-
-    ``dtype="bf16"`` rounds the A/B planes to bf16 (the one-hot +-1/0
-    weights are exact) and still accumulates in f32. ``f_window=(lo, hi)``
-    scores only columns [lo, hi). Candidate columns index as
-    ``grid_columns`` says."""
-    if impl not in ("conv", "einsum"):
-        raise ValueError(f"coarse grid impl {impl!r}")
-    if dtype not in ("f32", "bf16"):
-        raise ValueError(f"grid dtype {dtype!r}")
+    ``dtype="bf16"`` rounds the A/B planes to bf16 (the +-1 signs are
+    exact) and still accumulates in f32. ``f_window=(lo, hi)`` scores only
+    columns [lo, hi). Candidate columns index as ``grid_columns`` says."""
     lo, width = grid_window(ps.shape[-1], f_window)
-    ifr = grid_columns(if0, lo, width)
-    if ps.device.type == "cuda":
-        return sync_grid(ps, ifr, offsets, sync_sign, lo=lo, width=width,
-                         n_lags=n_lags, dtype=dtype)
-    A, B = grid_planes(ps, lo, width, dtype)
-    form = conv_grid if impl == "conv" else einsum_grid
-    return form(A, B, ifr, offsets, sync_sign, n_lags=n_lags)
-
-
-def _one_hot(offsets, sync_sign):
-    onehot = F.one_hot((offsets - _D_MIN).long(), _N_SHIFTS).float()
-    return onehot, onehot * sync_sign.float()[None, :, None]   # (M,162,D)
-
-
-def conv_grid(A: torch.Tensor, B: torch.Tensor, ifr: torch.Tensor,
-              offsets: torch.Tensor, sync_sign: torch.Tensor, *,
-              n_lags: int = 26) -> torch.Tensor:
-    """The ``conv`` form on planes (B, n, width) (``grid_planes``) at window
-    columns ifr (B, C, 5) (``grid_columns``): one dilated correlation a
-    plane over every column, then the gather and ss / pw."""
-    onehot, W_ss = _one_hot(offsets, sync_sign)
-    bidx = torch.arange(A.shape[0], device=A.device)[:, None, None]
-    Ax = F.pad(A, (_D_MAX, -_D_MIN))[:, None]                  # (B,1,n,w+12)
-    Bx = F.pad(B, (_D_MAX, -_D_MIN))[:, None]
-    ss = F.conv2d(Ax, W_ss[:, None], dilation=(2, 1))[:, :, :n_lags]
-    pw = F.conv2d(Bx, onehot[:, None], dilation=(2, 1))[:, :, :n_lags]
-    ss_c = ss[bidx, :, :, ifr]                                 # (B,C,5,M,w)
-    pw_c = pw[bidx, :, :, ifr]
-    return (ss_c / pw_c).transpose(-1, -2).float()             # (B,C,5,w,M)
-
-
-def einsum_grid(A: torch.Tensor, B: torch.Tensor, ifr: torch.Tensor,
-                offsets: torch.Tensor, sync_sign: torch.Tensor, *,
-                n_lags: int = 26) -> torch.Tensor:
-    """The im2col ``einsum`` form on the same operands as ``conv_grid``,
-    its im2col copies built for at most _IM2COL_BYTES of windows at a
-    time."""
-    n, width = A.shape[-2:]
-    if n < 2 * 162 + n_lags - 2:
-        raise ValueError(f"{n} spectrum rows are too few for {n_lags} lags")
-    onehot, W_ss = _one_hot(offsets, sync_sign)
-    bidx = torch.arange(A.shape[0], device=A.device)[:, None, None]
-
-    def im2col(X):                  # (b, n, w) -> (b, lags, 162, D, w)
-        pad = F.pad(X, (_N_SHIFTS, _N_SHIFTS))
-        off0 = _D_MIN + _N_SHIFTS
-        S = torch.stack([pad[..., d + off0:d + off0 + width]
-                         for d in range(_N_SHIFTS)], dim=-2)   # (b,n,D,w)
-        return torch.stack([S[:, k0:k0 + 2 * 162:2] for k0 in range(n_lags)],
-                           dim=1)
-    step = max(1, _IM2COL_BYTES // (n_lags * 162 * _N_SHIFTS * width * 4))
-    out = []
-    for b0 in range(0, A.shape[0], step):
-        sl = slice(b0, b0 + step)
-        ss = torch.einsum("mkd,bwkdf->bwmf", W_ss, im2col(A[sl]))  # (b,w,M,f)
-        pw = torch.einsum("mkd,bwkdf->bwmf", onehot, im2col(B[sl]))
-        bi, fi = bidx[:ss.shape[0]], ifr[sl]
-        out.append(ss[bi, :, :, fi] / pw[bi, :, :, fi])          # (b,C,5,w,M)
-    return torch.cat(out).float()
+    return sync_grid(ps, grid_columns(if0, lo, width), offsets, sync_sign,
+                     lo=lo, width=width, n_lags=n_lags, dtype=dtype)
 
 
 def _check_grid(ps, ifr, offsets, sync_sign, lo, width, n_lags, dtype):
@@ -372,38 +303,53 @@ def sync_grid_plain(ps: torch.Tensor, ifr: torch.Tensor,
                     dtype: str = "f32") -> torch.Tensor:
     """The kernel's arithmetic in PyTorch, on any device: the planes of
     ``grid_planes``, zero outside the window; then for k = 0..161 in turn
-    the plane values at rows 2k + w and columns ifr + offs[:, k], added to
+    the plane values at rows 2k + w and columns x + offs[:, k], added to
     (pw) or, times sign[k], to (ss) f32 sums that start at 0; then ss / pw.
-    Counted in ``PLAIN_CALLS``."""
+    As in the kernel, a cell is summed once for each window column x that
+    some lane reads, and copied to those lanes. Counted in
+    ``PLAIN_CALLS``."""
     global PLAIN_CALLS
     _check_grid(ps, ifr, offsets, sync_sign, lo, width, n_lags, dtype)
     PLAIN_CALLS += 1
     W = ps.shape[0]
     C = ifr.shape[1]
     M = offsets.shape[0]
+    dev = ps.device
     A, B = grid_planes(ps, lo, width, dtype)
-    Ap = F.pad(A, (-_D_MIN, _D_MAX))
-    Bp = F.pad(B, (-_D_MIN, _D_MAX))
-    base = (ifr.reshape(W, 5 * C, 1) - _D_MIN).long()
-    offs = offsets.long()
-    sign = sync_sign.float()
-    ss = torch.zeros((W, n_lags, 5 * C * M), dtype=torch.float32,
-                     device=ps.device)
-    pw = torch.zeros_like(ss)
-    for k in range(162):
-        idx = (base + offs[:, k]).reshape(W, 1, -1).expand(-1, n_lags, -1)
-        rows = slice(2 * k, 2 * k + n_lags)
-        ss = ss + sign[k] * torch.gather(Ap[:, rows], 2, idx)
-        pw = pw + torch.gather(Bp[:, rows], 2, idx)
-    return (ss / pw).reshape(W, n_lags, C, 5, M).permute(
-        0, 2, 3, 1, 4).contiguous()
+    planes = F.pad(torch.stack([A, B]), (-_D_MIN, _D_MAX))  # (2, W, n, w+12)
+    cols, lane_col = torch.unique(ifr, return_inverse=True)
+    # padded plane column of (model, read column) at symbol k: (162, X*M)
+    taps = (cols[None, :, None] - _D_MIN
+            + offsets.t()[:, None, :]).long().reshape(162, -1)
+    # (ss, pw) weights of symbol k: sign[k] and 1
+    weights = torch.stack([sync_sign.float(),
+                           torch.ones(162, device=dev)], dim=1)
+    n = taps.shape[1]
+    step = (max(1, _CPU_GRAIN // (2 * W * n_lags)) if dev.type == "cpu"
+            else n)
+    grid = []
+    for c0 in range(0, n, step):
+        t = taps[:, c0:c0 + step]
+        acc = torch.zeros((2, W, n_lags, t.shape[1]), dtype=torch.float32,
+                          device=dev)
+        tap = torch.empty_like(acc)
+        for k in range(162):
+            torch.gather(planes[:, :, 2 * k:2 * k + n_lags], 3,
+                         t[k].expand(2, W, n_lags, -1), out=tap)
+            acc.addcmul_(tap, weights[k, :, None, None, None])
+        grid.append(acc[0] / acc[1])
+    grid = torch.cat(grid, dim=-1).reshape(W, n_lags, -1, M)
+    # each lane column's cells: (W, 5C, n_lags, M)
+    wi = torch.arange(W, device=dev)[:, None]
+    grid = grid[wi, :, lane_col.reshape(W, 5 * C)]
+    return grid.reshape(W, C, 5, n_lags, M)
 
 
 class CoarseSearch:
     """The host engine's coarse search over one 45000-sample window
     (search.py:607-652) on ``device``: FFT STFT power, smoothed SNR
-    spectrum, host peak pick, the f32 einsum sync grid over all maxfreqs
-    lanes and the exact selection (the CUDA kernel on the card). ``models``
+    spectrum, host peak pick, the f32 sync grid over all maxfreqs lanes
+    and the exact selection (the CUDA kernel on the card). ``models``
     is the drift-model bank, by default built from ``cfg``."""
 
     def __init__(self, cfg: CoarseConfig | None = None, *,
@@ -441,7 +387,7 @@ class CoarseSearch:
         valid, if0, snr = detect_peaks(sm.cpu().numpy(), cfg)
         sync = coarse_score_grid(
             ps[None], torch.from_numpy(if0)[None].to(self.device),
-            self._offsets, self._sign, impl="einsum")[0]
+            self._offsets, self._sign)[0]
         best, best_idx = select_best(sync, self._is_nl,
                                      threshold=float(cfg.threshold))
         best = best.cpu().numpy()
@@ -466,8 +412,8 @@ class CoarseSearch:
 
 __all__ = ["Candidates", "CoarseSearch", "DriftModelBank", "KERNEL_LAUNCHES",
            "MAX_MODELS", "MODE_LINEAR", "MODE_NONLINEAR", "PLAIN_CALLS",
-           "build_drift_models", "coarse_score_grid", "conv_grid",
-           "detect_peaks", "einsum_grid", "grid_columns", "grid_planes",
+           "build_drift_models", "coarse_score_grid", "detect_peaks",
+           "grid_columns", "grid_planes",
            "grid_window", "max_peaks", "powersum_planes",
            "reset_counters", "smoothed_snr_spectrum", "sync_grid",
            "sync_grid_plain"]

@@ -5,7 +5,7 @@ Counterpart of uwspr_tpu/pipeline/decoder.py. One ``WindowDecoder`` call
 decodes one 45000-sample window with every per-candidate stage batched:
 
 - coarse candidates (``coarse.search.CoarseSearch``: FFT STFT, peak pick,
-  f32 einsum grid, exact selection through ``ops.select``);
+  f32 sync grid, exact selection through ``ops.select``);
 - staged (lag, freq, drift) refinement and the soft symbols of all jiggled
   shifts (``demod.finesync.FineSync``, probe powers through ``ops.probe``);
 - sync/rms gates, then one Fano call over every gated (candidate x jiggle)
@@ -18,7 +18,7 @@ The stages hand their results to the host as numpy between steps, as the
 JAX host engine does. The device is named by the caller; on a card every
 probe-power, selection and (with ``fano_backend="jax"``) Fano call launches
 its CUDA kernel, and the whole decode runs under ``exact_f32`` so the
-einsum grid's strict ``v > best`` ties and the first-max-wins argmaxes see
+selection's strict ``v > best`` ties and the first-max-wins argmaxes see
 full f32 products.
 """
 

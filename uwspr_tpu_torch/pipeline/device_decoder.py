@@ -6,17 +6,21 @@ JAX decoder jits (jit_decoder.py:156-176):
 
   STFT power (stft_impl "pallas": the fused CUDA kernel, computing only
   the columns read) -> smoothed SNR spectrum -> peak pick -> coarse sync
-  grid (conv; the im2col einsum with bf16 operands when hpbm > 32) ->
+  grid (the sync-grid kernel; bf16 planes when hpbm > 32) ->
   exact model selection (CUDA kernel) -> phase A/B probe refinement ->
   joint fine grid, soft symbols over all jiggles, sync/rms gates,
   deinterleave -> Fano (CUDA kernel) -> first success in jiggle
   order -> on-device OSD of the worth candidates whose gated lanes all
   failed (osd_depth > 0, fec/osd_torch.py) -> packed (W, C, 23) float32.
 
-The lanes the refinement runs on: with cand_compact_lanes > 0 the valid
-candidates gathered across the batch (_compact_cand_pre); otherwise all
-W*C lanes, and with refine_max_lanes > 0 the post-worth tail on the worth
-lanes gathered across the batch (_compact_refine_tail). The Fano: with
+The lanes the refinement runs on (``prefano``, one path): phase A/B on
+the head lanes, the valid candidates of the batch strongest coarse SNR
+first, at most cand_compact_lanes of them, or with cand_compact_lanes == 0
+every W*C lane in order; the tail (fine grid to deinterleave) on the
+worthy head lanes first, at most refine_max_lanes of them (or all head
+lanes), or, with neither knob on, on every head lane. The results go back
+to the W*C lanes once, and refine_overflow counts per window the valid
+lanes not kept and the worthy lanes not tailed. The Fano: with
 fano_compact_lanes > 0 every gated lane of the batch, never dropped,
 every jiggle at once in one call (_fano_jiggles; the JAX program's two
 phases, jiggle 0 and then the other jiggles of the candidates it did not
@@ -66,8 +70,8 @@ starts with its marker kernel (ops/marks.py), in ``marks.STAGES`` order,
 and ``uwspr_mark_end`` follows the packed output, so a device trace of a
 replay splits by stage.
 
-truncate_stage is not ported (CUDA events split the stages,
-scripts/torch_stages.py) and raises NotImplementedError.
+truncate_stage is not ported (the stage markers split the stages) and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -367,7 +371,9 @@ class DeviceDecoder:
 
     def coarse_grid(self, z_all: torch.Tensor) -> dict:
         """(W, fl) complex64 -> peaks and the (W, C, 5, 26, M) sync grid the
-        model selection walks."""
+        model selection walks: ``coarse_score_grid``, the sync-grid kernel
+        on a card and its plain version on the CPU. The port reads
+        ``grid_impl`` only for the "auto" grid_dtype."""
         cfg = self.config.coarse
         m = cfg.fft_size // 2
         cb0 = self._cols[0]
@@ -379,18 +385,16 @@ class DeviceDecoder:
         marks.mark("coarse", z_all)
         sm = smoothed_snr_spectrum(ps, hpbm=cfg.hpbm, m=m, col0=cb0)
         valid, if0, snr = self._peaks(sm)
-        # on the CPU conv for narrowband, the im2col GEMM for wideband (on a
-        # card the sync-grid kernel computes either); bf16 planes for the
-        # einsum (jit_decoder.py:350-361); explicit values stand
-        grid_impl = cfg.grid_impl
-        if grid_impl == "auto":
-            grid_impl = "einsum" if cfg.hpbm > 32 else "conv"
+        # grid_dtype "auto": bf16 planes where the JAX program takes the
+        # einsum (grid_impl "einsum", or "auto" at hpbm > 32), f32 where it
+        # takes the conv (jit_decoder.py:350-361); an explicit value stands
         grid_dtype = cfg.grid_dtype
         if grid_dtype == "auto":
-            grid_dtype = "bf16" if grid_impl == "einsum" else "f32"
+            einsum = cfg.grid_impl == "einsum" or (
+                cfg.grid_impl == "auto" and cfg.hpbm > 32)
+            grid_dtype = "bf16" if einsum else "f32"
         syncgrid = coarse_score_grid(
             ps, if0 - cb0, self.state["offsets"], self.state["sign"],
-            impl=grid_impl,
             f_window=(m - cfg.hpbm - 1 - 6 - cb0, m + cfg.hpbm + 1 + 6 - cb0),
             dtype=grid_dtype)
         return {"valid": valid, "if0": if0, "snr": snr, "grid": syncgrid}
@@ -433,9 +437,14 @@ class DeviceDecoder:
             slm_params[:, 3:4], float(self.config.coarse.cf), t[None, :])
         return torch.where((mode == 1)[:, None], nl, lin).float()
 
+    def _spe(self, *a, **k):
+        """shared_probe_eval at the config's probe dtype."""
+        return shared_probe_eval(*a, dtype=self.config.demod.probe_dtype,
+                                 consts=self._probe_consts, **k)
+
     def _refine_common(self, st: dict, probe) -> dict:
         """Phase A (coarse lag/freq joint grid) and phase B (linear drift
-        +/-0.5) over the compacted lanes (jit_decoder.py:412-502)."""
+        +/-0.5) over the head lanes (jit_decoder.py:412-502)."""
         dcfg = self.config.demod
         dev = st["freq"].device
         marks.mark("refine", st["freq"])
@@ -443,11 +452,6 @@ class DeviceDecoder:
         mode, slm_params = st["mode"], st["slm_params"]
         C = valid.shape[0]
         cidx = torch.arange(C, device=dev)
-        pdt = dcfg.probe_dtype
-
-        def spe(*a, **k):
-            return shared_probe_eval(*a, dtype=pdt,
-                                     consts=self._probe_consts, **k)
         f1 = st["freq"].float()
         shift1 = st["shift"]
         drift1 = st["drift"]
@@ -459,7 +463,7 @@ class DeviceDecoder:
         zd1 = probe_derotate(Amat1, dsym)
         lag_grid = shift1[:, None] + torch.arange(-128, 129, 64, device=dev)
         freq_grid = f1[:, None] + _offsets_f32(0.25, dev)[None, :]
-        s = spe(zd1, base1, lag_grid, freq_grid, n_lags=5)      # (C, 5, 5)
+        s = self._spe(zd1, base1, lag_grid, freq_grid, n_lags=5)  # (C, 5, 5)
         li = torch.argmax(s[:, 2, :], dim=1)          # stage 0: lag @ f0
         shift1 = lag_grid[cidx, li]
         fi2 = torch.argmax(s[cidx, :, li], dim=1)     # stage 1: freq @ lag
@@ -473,12 +477,12 @@ class DeviceDecoder:
         is_lin = mode != 1
         driftp = drift1 + 0.5
         driftm = drift1 - 0.5
-        sp = spe(probe_derotate(Amat2d, self._drift_offsets(mode, driftp,
-                                                            slm_params)),
-                 base2d, shift1[:, None], f1[:, None], n_lags=1)[:, 0, 0]
-        sm_ = spe(probe_derotate(Amat2d, self._drift_offsets(mode, driftm,
-                                                             slm_params)),
-                  base2d, shift1[:, None], f1[:, None], n_lags=1)[:, 0, 0]
+        sp = self._spe(probe_derotate(Amat2d, self._drift_offsets(
+            mode, driftp, slm_params)), base2d, shift1[:, None],
+            f1[:, None], n_lags=1)[:, 0, 0]
+        sm_ = self._spe(probe_derotate(Amat2d, self._drift_offsets(
+            mode, driftm, slm_params)), base2d, shift1[:, None],
+            f1[:, None], n_lags=1)[:, 0, 0]
         updp = is_lin & (sp > sync1)
         updm = is_lin & ~updp & (sm_ > sync1)
         drift1 = torch.where(updp, driftp, torch.where(updm, driftm, drift1))
@@ -492,19 +496,15 @@ class DeviceDecoder:
 
     def _prefano_tail(self, st: dict) -> dict:
         """Joint fine grid, soft symbols over all jiggles, gates and
-        deinterleave (jit_decoder.py:504-570)."""
+        deinterleave over the tail lanes (jit_decoder.py:504-570)."""
         dcfg = self.config.demod
         dev = st["freq"].device
         marks.mark("prefano_tail", st["freq"])
         C = st["shift"].shape[0]
         cidx = torch.arange(C, device=dev)
-
-        def spe(*a, **k):
-            return shared_probe_eval(*a, dtype=dcfg.probe_dtype,
-                                     consts=self._probe_consts, **k)
         valid = st["valid"]
         f1, shift1, drift1 = st["freq"], st["shift"], st["drift"]
-        mode, slm_params, sync1 = st["mode"], st["slm_params"], st["sync1"]
+        mode, slm_params = st["mode"], st["slm_params"]
         dsym = self._drift_offsets(mode, drift1, slm_params)
         zd2 = probe_derotate(st["Amat2"], dsym)
         base2 = st["base2"]
@@ -512,7 +512,7 @@ class DeviceDecoder:
         worth = st["worth0"]
         lag_grid = shift1[:, None] + torch.arange(-32, 33, 16, device=dev)
         freq_grid = f1[:, None] + _offsets_f32(0.05, dev)[None, :]
-        s = spe(zd2, base2, lag_grid, freq_grid, n_lags=5)      # (C, 5, 5)
+        s = self._spe(zd2, base2, lag_grid, freq_grid, n_lags=5)  # (C, 5, 5)
         li = torch.argmax(s[:, 2, :], dim=1)
         shift1 = torch.where(worth, lag_grid[cidx, li], shift1)
         # fine freq at the post-fine-lag shift: the chosen-lag column if
@@ -525,8 +525,8 @@ class DeviceDecoder:
         # soft symbols over all jiggles
         jig = self.state["jiggles"]
         lag_grid = shift1[:, None] + jig[None, :]
-        sync2, p = spe(zd2, base2, lag_grid, f1[:, None],
-                       n_lags=jig.shape[0], want_symbols=True)
+        sync2, p = self._spe(zd2, base2, lag_grid, f1[:, None],
+                             n_lags=jig.shape[0], want_symbols=True)
         sync2 = sync2[:, 0, :]                                  # (C, J)
         p = p[:, 0]                                             # (C,J,162,4)
         fsymb = torch.where(self.state["sync_bit"][None, None, :],
@@ -547,32 +547,95 @@ class DeviceDecoder:
 
     def prefano(self, ri: torch.Tensor) -> dict:
         """(W, 2, fl) -> per-window candidate state, gates and deinterleaved
-        symbols, each (W, C, ...): coarse search on every window, then the
-        refinement on the lanes the config picks (see the module doc)."""
+        symbols, each (W, C, ...), and ``refine_overflow`` (W,): coarse
+        search on every window, then the refinement on the lanes the
+        config picks (see the module doc), scattered back once
+        (jit_decoder.py:283-300, :732-863)."""
         dcfg = self.config.demod
         z_all = torch.complex(ri[:, 0], ri[:, 1])
         coarse = self._coarse_stage(z_all)
         marks.mark("compact", z_all)
-        if dcfg.cand_compact_lanes > 0:
-            return self._compact_cand_pre(z_all, coarse)
-        # every lane of every window (the vmap of _prefano,
-        # jit_decoder.py:283-300), as one batch of W*C lanes
         W, C = coarse["valid"].shape
-        flat = {k: v.reshape((W * C,) + v.shape[2:]) for k, v in coarse.items()}
-        widx = torch.arange(W, device=z_all.device).repeat_interleave(C)
-        head = self._refine_common(flat, self._lane_probe(z_all, widx))
-        if dcfg.refine_max_lanes > 0:
-            return self._compact_refine_tail(head, W, C)
-        tail = self._prefano_tail(head)
+        L = W * C
+        dev = z_all.device
+        flat = {k: v.reshape((L,) + v.shape[2:]) for k, v in coarse.items()}
+
+        # head lanes (phase A/B): the valid lanes of the batch strongest
+        # coarse SNR first, or every lane in order (sel None)
+        if dcfg.cand_compact_lanes > 0:
+            key = torch.where(flat["valid"], -flat["snr"], float("inf"))
+            sel = torch.argsort(key, stable=True)[
+                :min(dcfg.cand_compact_lanes, L)]
+            widx = torch.div(sel, C, rounding_mode="floor")
+            st = {k: v[sel] for k, v in flat.items()}
+        else:
+            sel = None
+            widx = torch.arange(W, device=dev).repeat_interleave(C)
+            st = flat
+        head = self._refine_common(st, self._lane_probe(z_all, widx))
+        n_head = head["valid"].shape[0]
+
+        # tail lanes (fine grid to deinterleave): the worthy head lanes
+        # first, or every head lane with worth0 unmasked (sel2 None; the
+        # JAX program's all-lanes path also moves freq and shift of
+        # invalid lanes)
+        if sel is not None or dcfg.refine_max_lanes > 0:
+            worthy = head["worth0"] & head["valid"]
+            sel2 = torch.argsort((~worthy).to(torch.int8), stable=True)[
+                :min(dcfg.refine_max_lanes or n_head, n_head)]
+            sub = {k: head[k][sel2]
+                   for k in ("valid", "freq", "shift", "drift", "mode",
+                             "slm_params", "sync1", "Amat2", "base2")}
+            sub["worth0"] = worthy[sel2]
+        else:
+            sel2, sub = None, head
+        tail = self._prefano_tail(sub)
+        # the tail lanes among the L
+        gsel = sel2 if sel is None else sel[sel2]
+
+        def put(idx, vals, base=None):
+            """vals on lanes idx of a copy of base (of zeros for None), or
+            vals itself when idx is None (every lane)."""
+            if idx is None:
+                return vals
+            if base is None:
+                base = torch.zeros((L,) + vals.shape[1:], dtype=vals.dtype,
+                                   device=dev)
+            out = base.clone()
+            out[idx] = vals
+            return out
+
+        # the coarse values, the head's on its lanes, the tail's on top
+        freq, shift, drift = (put(sel, head[k], flat[k])
+                              for k in ("freq", "shift", "drift"))
+        # refine_overflow: the valid lanes not kept, and the worthy head
+        # lanes not tailed
+        if sel2 is None:
+            overflow = torch.zeros(W, dtype=torch.int64, device=dev)
+        else:
+            def mask(n, idx):
+                return torch.zeros(n, dtype=torch.bool,
+                                   device=dev).index_fill_(0, idx, True)
+            kept = (torch.ones(L, dtype=torch.bool, device=dev)
+                    if sel is None else mask(L, sel))
+            tailed = mask(n_head, sel2)
+            dropped = torch.zeros(L, dtype=torch.bool, device=dev)
+            dropped[slice(None) if sel is None else sel] = worthy & ~tailed
+            overflow = ((flat["valid"] & ~kept).reshape(W, C).sum(dim=1)
+                        + dropped.reshape(W, C).sum(dim=1))
 
         def unflat(v):
             return v.reshape((W, C) + v.shape[1:])
         return {
             "valid": coarse["valid"], "snr": coarse["snr"],
             "mode": coarse["mode"], "slm_params": coarse["slm_params"],
-            "drift": unflat(head["drift"]),
-            **{k: unflat(tail[k]) for k in ("worth", "freq", "shift",
-                                            "sync2", "gate", "deint")},
+            "drift": unflat(drift),
+            "worth": unflat(put(gsel, tail["worth"])),
+            "freq": unflat(put(gsel, tail["freq"], freq)),
+            "shift": unflat(put(gsel, tail["shift"], shift)),
+            **{k: unflat(put(gsel, tail[k]))
+               for k in ("sync2", "gate", "deint")},
+            "refine_overflow": overflow,
         }
 
     def _lane_probe(self, z_all: torch.Tensor, widx: torch.Tensor):
@@ -581,107 +644,6 @@ class DeviceDecoder:
         pdt = "bf16" if self.config.demod.probe_dtype == "bf16" else "c64"
         return lambda center, reach, Wp, block: make_shared_probe_lanes(
             z_all, widx, center, reach=reach, W=Wp, block=block, dtype=pdt)
-
-    def _compact_refine_tail(self, head: dict, W: int, C: int) -> dict:
-        """The post-worth tail on at most refine_max_lanes worth lanes
-        gathered across the batch, scattered back; worth lanes beyond the
-        cap are counted per window in refine_overflow
-        (jit_decoder.py:732-778)."""
-        dcfg = self.config.demod
-        dev = head["freq"].device
-        J = dcfg.n_jiggles
-        ML = min(dcfg.refine_max_lanes, W * C)
-        worthy = head["worth0"] & head["valid"]                 # (W*C,)
-        sel = torch.argsort((~worthy).to(torch.int8), stable=True)[:ML]
-        sub = {k: head[k][sel]
-               for k in ("valid", "freq", "shift", "drift", "mode",
-                         "slm_params", "sync1", "Amat2", "base2")}
-        sub["worth0"] = worthy[sel]     # padding lanes stay unworthy
-        tail = self._prefano_tail(sub)
-
-        def scat(base_flat, vals):
-            out = base_flat.clone()
-            out[sel] = vals
-            return out.reshape((W, C) + vals.shape[1:])
-
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        selmask = zeros(W * C, torch.bool).index_fill_(0, sel, True)
-        return {
-            "valid": head["valid"].reshape(W, C),
-            "snr": head["snr"].reshape(W, C),
-            "mode": head["mode"].reshape(W, C),
-            "slm_params": head["slm_params"].reshape(W, C, -1),
-            "drift": head["drift"].reshape(W, C),
-            "worth": scat(zeros(W * C, torch.bool), tail["worth"]),
-            "freq": scat(head["freq"], tail["freq"]),
-            "shift": scat(head["shift"], tail["shift"]),
-            "sync2": scat(zeros((W * C, J), torch.float32), tail["sync2"]),
-            "gate": scat(zeros((W * C, J), torch.bool), tail["gate"]),
-            "deint": scat(zeros((W * C, J, 162), torch.uint8), tail["deint"]),
-            "refine_overflow": (worthy & ~selmask).reshape(W, C).sum(dim=1),
-        }
-
-    def _compact_cand_pre(self, z_all: torch.Tensor, coarse: dict) -> dict:
-        """Refinement on the valid lanes gathered across the batch
-        (jit_decoder.py:780-863). Valid lanes beyond cand_compact_lanes are
-        dropped weakest coarse SNR first and counted in refine_overflow."""
-        dcfg = self.config.demod
-        W, C = coarse["valid"].shape
-        dev = z_all.device
-        J = dcfg.n_jiggles
-        ML = min(dcfg.cand_compact_lanes, W * C)
-        flat = {k: v.reshape((W * C,) + v.shape[2:]) for k, v in coarse.items()}
-        key = torch.where(flat["valid"], -flat["snr"], float("inf"))
-        sel = torch.argsort(key, stable=True)[:ML]
-        widx = torch.div(sel, C, rounding_mode="floor")
-        st = {k: v[sel] for k, v in flat.items()}
-        head = self._refine_common(st, self._lane_probe(z_all, widx))
-
-        worthy = head["worth0"] & head["valid"]                 # (ML,)
-        ML2 = (min(dcfg.refine_max_lanes, ML) if dcfg.refine_max_lanes > 0
-               else ML)
-        sel2 = torch.argsort((~worthy).to(torch.int8), stable=True)[:ML2]
-        sub = {k: head[k][sel2]
-               for k in ("valid", "freq", "shift", "drift", "mode",
-                         "slm_params", "sync1", "Amat2", "base2")}
-        sub["worth0"] = worthy[sel2]
-        tail = self._prefano_tail(sub)
-        gsel = sel[sel2]             # global (W*C) indices of the tail lanes
-
-        def scat(base_flat, vals):
-            out = base_flat.clone()
-            out[gsel] = vals
-            return out.reshape((W, C) + vals.shape[1:])
-
-        def zeros(shape, dtype):
-            return torch.zeros(shape, dtype=dtype, device=dev)
-        # phase A/B results on every selected lane, the fine-grid updates
-        # of the tail lanes on top
-        freq = flat["freq"].clone()
-        freq[sel] = head["freq"]
-        shift = flat["shift"].clone()
-        shift[sel] = head["shift"]
-        drift = flat["drift"].clone()
-        drift[sel] = head["drift"]
-        kept = zeros(W * C, torch.bool).index_fill_(0, sel, True)
-        tailed = zeros(ML, torch.bool).index_fill_(0, sel2, True)
-        worth_dropped = zeros(W * C, torch.bool)
-        worth_dropped[sel] = worthy & ~tailed
-        overflow = ((flat["valid"] & ~kept).reshape(W, C).sum(dim=1)
-                    + worth_dropped.reshape(W, C).sum(dim=1))
-        return {
-            "valid": coarse["valid"], "snr": coarse["snr"],
-            "mode": coarse["mode"], "slm_params": coarse["slm_params"],
-            "drift": drift.reshape(W, C),
-            "worth": scat(zeros(W * C, torch.bool), tail["worth"]),
-            "freq": scat(freq, tail["freq"]),
-            "shift": scat(shift, tail["shift"]),
-            "sync2": scat(zeros((W * C, J), torch.float32), tail["sync2"]),
-            "gate": scat(zeros((W * C, J), torch.bool), tail["gate"]),
-            "deint": scat(zeros((W * C, J, 162), torch.uint8), tail["deint"]),
-            "refine_overflow": overflow,
-        }
 
     # -- Fano (jit_decoder.py:865-1022) -------------------------------------
 
@@ -770,8 +732,7 @@ class DeviceDecoder:
         widx = torch.arange(W, device=dev)[:, None]
         cidx = torch.arange(C, device=dev)[None, :]
         deint = pre["deint"]
-        overflow = pre.get("refine_overflow",
-                           torch.zeros(W, dtype=torch.int64, device=dev))
+        overflow = pre["refine_overflow"]
 
         marks.mark("fano1", gate)
         if self.config.demod.fano_compact_lanes > 0:
@@ -898,9 +859,7 @@ class DeviceDecoder:
         head = torch.stack([pre[k].to(f32) for k in (
             "valid", "worth", "freq", "snr", "shift", "drift", "mode")],
             dim=-1)                                             # (W, C, 7)
-        ovf = pre.get("refine_overflow")
-        ovf = (torch.zeros((W, C, 1), dtype=f32, device=head.device)
-               if ovf is None else ovf.to(f32)[:, None, None].expand(W, C, 1))
+        ovf = pre["refine_overflow"].to(f32)[:, None, None].expand(W, C, 1)
         return torch.cat([head, pre["slm_params"].to(f32),
                           pre["sync2"].to(f32), pre["gate"].to(f32),
                           pre["deint"].reshape(W, C, J * 162).to(f32), ovf],

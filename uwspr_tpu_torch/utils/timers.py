@@ -6,7 +6,7 @@ prints (lib/sliding_window_stream_to_pdu_impl.cc:79-92).
 The port's own copy of uwspr_tpu/utils/timers.py (imports pointed inside
 uwspr_tpu_torch) but for the module-level ``GLOBAL_TIMERS``, which nothing
 of the port reads; held equal to it by tests/test_torch_copies.py. The
-host engine and scripts/torch_stages.py own their StageTimers; the device
+host engine owns its StageTimers (``WindowDecoder.timers``); the device
 path's stages are profiler spans and marker kernels (utils/profiler.py,
 ops/marks.py).
 """
