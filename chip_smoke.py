@@ -448,6 +448,10 @@ def phase_build():
         log(f"[build] sync_grid_kernel at {slots} candidate slots, 126 "
             f"models: {lib.uwspr_sync_grid_smem(slots, 126)} bytes dynamic "
             f"smem")
+    from uwspr_tpu_torch.demod.finesync import lane_probe_tiling
+    for name, (NL, F, D, W, span) in PROBE_CALLS.items():
+        log(f"[build] probe_lanes_kernel, {name}: "
+            f"{lane_probe_tiling(NL, F, D, W, span)}")
     sass = cuda_build.sass_counts(info["library"], "HMMA")
     mma = {k: v for k, v in sass.items() if "stft_power_mma" in k}
     log(f"[build] tensor-core instructions (cuobjdump -sass) in the STFT "
@@ -4515,6 +4519,115 @@ def timing_sync_grid(card, dec, ri_c, sm_mhz):
     return out
 
 
+# the device engine's probe calls: (lags, freqs a lane, drift sets, window
+# width, lag spread)
+PROBE_CALLS = {"phase A": (5, 5, 1, 640, 256), "phase B": (1, 1, 2, 384, 0),
+               "fine grid": (5, 5, 1, 640, 64),
+               "jiggles": (17, 1, 1, 640, 128)}
+
+
+def probe_calls(dec, ri_c):
+    """The (args, kwargs) of the decoder's lane_probe calls on the windows
+    ri_c, recorded from an eager prefano, by PROBE_CALLS name."""
+    import torch
+
+    from uwspr_tpu_torch.pipeline import captured
+    from uwspr_tpu_torch.pipeline import device_decoder as dd
+    seen, real = [], dd.lane_probe
+
+    def record(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+    dd.lane_probe = record
+    try:
+        with torch.no_grad(), captured.eager():
+            dec.prefano(ri_c)
+    finally:
+        dd.lane_probe = real
+    return dict(zip(PROBE_CALLS, seen))
+
+
+def timing_probe_lanes(card):
+    """The lane-probe kernel at the cells' shapes of each of a decode's four
+    probe calls, on the serving decoder's own calls: wideband W = 32 (512
+    lanes, wide_cycle_w32), narrowband W = 128 (256 lanes,
+    narrow_cycle_w128 and the ring's hop) and W = 32 (64 lanes,
+    narrow_osd_deep_w32); against the plain chain (lane_probe_plain, the
+    operators the decoder ran before the kernel: p bit for bit, or its
+    largest difference) and, as the library yardstick, the chain's four
+    f32 torch.bmm alone on operands built beforehand. Bound: the useful
+    multiply-adds, 4 a sample of the 256 a tone power, at the f32 peak
+    outside the tensor cores, or the bytes (each lane's window span read
+    once, the bank, p written), whichever is larger."""
+    import torch
+
+    from uwspr_tpu_torch.config import (CoarseConfig, PipelineConfig,
+                                        with_serving_defaults)
+    from uwspr_tpu_torch.demod import finesync as fs
+    from uwspr_tpu_torch.device import exact_f32
+    from uwspr_tpu_torch.pipeline.device_decoder import DeviceDecoder
+    wri, _ = wideband_windows()
+    cells = {
+        "wideband W=32": (with_serving_defaults(PipelineConfig(
+            coarse=CoarseConfig(halfbandwidth=187, maxfreqs=200)),
+            WB_WINDOWS), torch.from_numpy(wri).cuda()),
+        "narrowband W=128": (with_serving_defaults(PipelineConfig(), 128),
+                             torch.from_numpy(make_windows(128)).cuda()),
+        "narrowband W=32": (with_serving_defaults(PipelineConfig(), 32),
+                            torch.from_numpy(make_windows(32, 1)).cuda())}
+    out = {}
+    for cell, (cfg, ri_c) in cells.items():
+        dec = DeviceDecoder(cfg, device="cuda")
+        for call, (a, k) in probe_calls(dec, ri_c).items():
+            ri, widx, base, dsyms, lags, freqs = a
+            kw = {"width": k["width"], "off": k.get("off", 0)}
+            D, (L, F), NL = len(dsyms), freqs.shape, lags.shape[1]
+            W = kw["width"]
+            # the chain's product operands, built once
+            z_all = torch.complex(ri[:, 0], ri[:, 1])
+            A = fs._lane_windows(z_all, widx, base + kw["off"], W, "bf16")
+            zd = fs.probe_derotate(A, dsyms[0])
+            zr, zi = zd[:, 0].float(), zd[:, 1].float()
+            bmask = torch.randn(L, W, NL * 4 * F, device="cuda")
+
+            def library():
+                return [torch.bmm(x, bmask) for x in (zr, zi, zr, zi)]
+            with torch.no_grad(), exact_f32():
+                ms, turns, outs = time_turns(
+                    [("plain", lambda: fs.lane_probe_plain(
+                        *a, width=W, off=kw["off"])),
+                     ("kernel", lambda: fs.lane_probe(*a, **k)),
+                     ("library", library)],
+                    {"plain": 3, "kernel": 20, "library": 5})
+            err, exact = 0.0, True
+            for (s_, p), (s0, p0) in zip(outs["kernel"], outs["plain"]):
+                exact &= torch.equal(p.contiguous().view(torch.int32),
+                                     p0.contiguous().view(torch.int32))
+                err = max(err, (p - p0).abs().max().item())
+                require(err <= 2e-5 * p0.abs().max().item(),
+                        f"probe_lanes {cell} {call}: kernel differs from "
+                        f"the plain chain by {err}")
+            fma = D * L * NL * F * 4 * 162 * 256 * 4
+            nbytes = (L * (162 * 256 + W) * 8 + L * 4 * F * W * 8
+                      + D * L * NL * F * 4 * 162 * 4)
+            e = entry("probe_lanes", "probe_lanes.cu",
+                      "none: XLA einsums (uwspr_tpu/demod/finesync.py:394)",
+                      [D, L, F, NL, 162, 4], ms["kernel"], ms["plain"],
+                      bound(nbytes, 2.0 * fma, F32_FLOP_S, "f32 FMA"),
+                      "the chain's four f32 torch.bmm", ms["library"], err)
+            e.update(bit_exact=exact, cell=cell, call=call)
+            log(f"[timing] {card}: probe_lanes {cell} {call} "
+                f"{tuple(e['shape'])}: kernel {ms['kernel']:.4f} ms, plain "
+                f"chain {ms['plain']:.4f} ms, four torch.bmm "
+                f"{ms['library']:.4f} ms; bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_kind']}), {100 * e['bound_share']:.1f} % of it "
+                f"(turns {fmt_turns(turns)}); kernel == plain "
+                f"{'bit-exact' if exact else f'within {err:.3g}'}")
+            out[f"{cell} {call}"] = e
+        del dec
+    return out
+
+
 def main() -> int:
     card, sm_mhz = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -4564,6 +4677,7 @@ def main() -> int:
     probes = timing_probe(card, z_ri, cases)
     stfts = timing_stft(card, z, kw, stft_inputs, wide)
     grids = timing_sync_grid(card, dec, ri_c, sm_mhz)
+    lanes = timing_probe_lanes(card)
     runtimes = timing_runtimes(card, stream, ring, htod)
     osd_e = osd["entry"]
     sel = sels["device"]
@@ -4627,8 +4741,13 @@ def main() -> int:
     print(json.dumps({"scaling": scale}), flush=True)
     print(json.dumps({"async": asyn}), flush=True)
     print(json.dumps({"captured": capt}), flush=True)
-    print(json.dumps({"kernels": [sel, fan, jig, prb, stf, osd_e, grd]}),
-          flush=True)
+    lan = lanes["narrowband W=128 phase A"]
+    lan["other_shapes"] = {k: {f: v[f] for f in (
+        "shape", "ms", "plain_ms", "bound_ms", "library_ms", "bit_exact")}
+        for k, v in lanes.items() if v is not lan}
+    lan["launches"] = launches["probe_lanes"]
+    print(json.dumps({"kernels": [sel, fan, jig, prb, stf, osd_e, grd,
+                                  lan]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -24,6 +24,19 @@ bf16 x bf16 products accumulated in f32 (the serving default). The probe
 products are plain batched matrix products, as XLA computes them outside
 any Pallas kernel; bf16 products are emulated exactly by upcasting the
 bf16 operands and multiplying in f32 with TF32 off.
+
+``lane_probe`` is the device engine's entry: one probe call (the powers
+and the sync of every lane's probes, for one or more drift sets) of lanes
+that read window widx[l] of the batch at a given window start. The
+dispatch is by the probe dtype and the device, not a fallback: the bf16
+form on a CUDA tensor is one launch of ``csrc/probe_lanes.cu`` (counted
+in ``KERNEL_LAUNCHES``), which reads each lane's window from the batch,
+derotates it in registers at the plain chain's rounding points and sums
+only each lag's 256 live samples; every other case (the bf16 form on the
+CPU, the complex64 form on any device) runs the plain chain above,
+``make_shared_probe_lanes``' gather, ``probe_derotate`` and
+``shared_probe_eval`` (the bf16 form's calls counted in
+``PLAIN_CALLS``).
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from uwspr_tpu_torch.protocol.constants import (
     TONE_OFFSETS,
     TONE_SPACING,
 )
+from uwspr_tpu_torch.utils import cuda_build
 
 _DT = 1.0 / SAMPLE_RATE
 _TONES_HZ = (TONE_OFFSETS * TONE_SPACING).astype(np.float32)  # (4,)
@@ -53,6 +67,22 @@ _W = 1024
 _PAD = 4096
 _FRAME = 162 * 256
 _REACH = 224            # max |lag - center| across all stages (128+32+64)
+_MAX_LANE_LAGS = 32     # lags a lane_probe kernel call takes, at most
+_MAX_LANE_FREQS = 8     # freqs a lane_probe kernel call takes, at most
+_MAX_LANE_SETS = 2      # drift sets a lane_probe kernel call takes, at most
+
+# launches of csrc/probe_lanes.cu onto a stream (a CUDA graph's capture
+# only records one) / lane_probe calls of the bf16 form that ran the plain
+# chain in the kernel's place (a CPU tensor), in this process; the f32
+# form is neither
+KERNEL_LAUNCHES = 0
+PLAIN_CALLS = 0
+
+
+def reset_counters() -> None:
+    global KERNEL_LAUNCHES, PLAIN_CALLS
+    KERNEL_LAUNCHES = 0
+    PLAIN_CALLS = 0
 
 
 def jiggle_offsets(n_jiggles: int, iifac: int) -> np.ndarray:
@@ -85,6 +115,15 @@ def _check_window(W: int, reach: int, block: int) -> None:
                          f"block {block}")
 
 
+def lane_window_base(center: torch.Tensor, n: int, *, reach: int = _REACH,
+                     W: int = _W, block: int = 256) -> torch.Tensor:
+    """(L,) lag centers -> (L,) int64 padded start of each lane's W-wide
+    window, which covers center +/- reach (finesync.py:275-317) in an
+    n-sample window."""
+    _check_window(W, reach, block)
+    return _window_base(center, reach, W, block, n + 2 * _PAD + W)
+
+
 def make_shared_probe_lanes(z_all: torch.Tensor, widx: torch.Tensor,
                             center: torch.Tensor, *, reach: int = _REACH,
                             W: int = _W, block: int = 256,
@@ -96,10 +135,15 @@ def make_shared_probe_lanes(z_all: torch.Tensor, widx: torch.Tensor,
     by _PAD zeros in front and _PAD+W behind, with sample 0 zeroed (the
     reference's correlation guard 0 < n < N). dtype "c64": (L, 162, W)
     complex64. dtype "bf16": (L, 2, 162, W) bfloat16 real/imag planes."""
-    _check_window(W, reach, block)
+    base = lane_window_base(center, z_all.shape[1], reach=reach, W=W,
+                            block=block)
+    return _lane_windows(z_all, widx, base, W, dtype), base
+
+
+def _lane_windows(z_all: torch.Tensor, widx: torch.Tensor,
+                  base: torch.Tensor, W: int, dtype: str) -> torch.Tensor:
+    """make_shared_probe_lanes' Amat at the padded starts ``base``."""
     B, N = z_all.shape
-    Np = N + 2 * _PAD + W
-    base = _window_base(center, reach, W, block, Np)
     span = torch.arange(_FRAME + W, device=z_all.device)
     pos = base[:, None] + span[None, :] - _PAD            # sample index
     inside = (pos >= 1) & (pos < N)                       # z[0] is zeroed
@@ -113,7 +157,7 @@ def make_shared_probe_lanes(z_all: torch.Tensor, widx: torch.Tensor,
         A = torch.where(inside, z_all[wi, posc], 0)
     else:
         raise ValueError(f"probe dtype {dtype!r}")
-    return _overlap_blocks(A, W), base
+    return _overlap_blocks(A, W)
 
 
 def make_shared_probe(z: torch.Tensor, center: torch.Tensor, *,
@@ -243,6 +287,137 @@ def sync_of_powers(p: torch.Tensor, sign: torch.Tensor) -> torch.Tensor:
     ss = torch.einsum("cfli,i->cfl", cmet, sign)
     totp = p.sum(dim=(-2, -1))
     return (ss / totp).float()
+
+
+def lane_probe(ri: torch.Tensor, widx: torch.Tensor, base: torch.Tensor,
+               dsyms, lags: torch.Tensor, freqs: torch.Tensor, *,
+               width: int, span: int, off: int = 0, dtype: str = "bf16",
+               consts: dict[str, torch.Tensor] | None = None):
+    """One probe call of lanes that read the batch's windows: for each
+    drift set dsym (L, 162) of ``dsyms``, (sync (L, F, NL), p (L, F, NL,
+    162, 4)) of the probes at lags (L, NL) and freqs (L, F) against lane
+    l's window of ``width`` columns from column ``off`` of the window that
+    starts at padded sample base[l] (``lane_window_base``) of window
+    widx[l] of ri (W, 2, N) f32. ``span`` bounds max - min of every lane's
+    lags (the kernel sizes its shared memory by it; a lane beyond it reads
+    NaN there). dtype is the config's probe dtype: "bf16" on a CUDA tensor
+    is one launch of ``csrc/probe_lanes.cu`` over all the drift sets, any
+    other case runs the plain chain (the module doc)."""
+    global PLAIN_CALLS
+    if consts is None:
+        consts = probe_constants(ri.device)
+    if dtype == "bf16" and ri.device.type == "cuda":
+        p_all = probe_lanes(ri, widx, base, dsyms, lags, freqs, width=width,
+                            span=span, off=off, consts=consts)
+        return [(sync_of_powers(p, consts["sign"]), p) for p in p_all]
+    if dtype == "bf16":
+        PLAIN_CALLS += 1        # the kernel's plain version in its place
+    return lane_probe_plain(ri, widx, base, dsyms, lags, freqs, width=width,
+                            off=off, dtype=dtype, consts=consts)
+
+
+def lane_probe_plain(ri: torch.Tensor, widx: torch.Tensor,
+                     base: torch.Tensor, dsyms, lags: torch.Tensor,
+                     freqs: torch.Tensor, *, width: int, off: int = 0,
+                     dtype: str = "bf16",
+                     consts: dict[str, torch.Tensor] | None = None):
+    """lane_probe by the plain chain, on any device: the lanes' windows
+    gathered (make_shared_probe_lanes at the given starts), derotated
+    (probe_derotate) and probed (shared_probe_eval) once a drift set."""
+    if dtype not in ("bf16", "f32"):
+        raise ValueError(f"probe dtype {dtype!r}")
+    z_all = torch.complex(ri[:, 0], ri[:, 1])
+    basew = base + off
+    Amat = _lane_windows(z_all, widx, basew, width,
+                         "bf16" if dtype == "bf16" else "c64")
+    return [shared_probe_eval(probe_derotate(Amat, dsym), basew, lags, freqs,
+                              n_lags=lags.shape[1], want_symbols=True,
+                              dtype=dtype, consts=consts)
+            for dsym in dsyms]
+
+
+def _check_lanes(ri, widx, base, dsyms, lags, freqs, width, span, off):
+    if ri.dim() != 3 or ri.shape[1] != 2 or ri.dtype != torch.float32:
+        raise ValueError(f"ri must be (W, 2, N) float32, got "
+                         f"{tuple(ri.shape)} {ri.dtype}")
+    L, F_ = freqs.shape
+    NL = lags.shape[1] if lags.dim() == 2 else 0
+    if tuple(lags.shape) != (L, NL) or not 1 <= NL <= _MAX_LANE_LAGS:
+        raise ValueError(f"lags {tuple(lags.shape)}: ({L}, 1.."
+                         f"{_MAX_LANE_LAGS}) expected")
+    if not 1 <= F_ <= _MAX_LANE_FREQS:
+        raise ValueError(f"{F_} freqs: 1..{_MAX_LANE_FREQS} expected")
+    if tuple(widx.shape) != (L,) or tuple(base.shape) != (L,):
+        raise ValueError(f"widx {tuple(widx.shape)} / base "
+                         f"{tuple(base.shape)} are not ({L},)")
+    if not 1 <= len(dsyms) <= _MAX_LANE_SETS \
+            or any(tuple(d.shape) != (L, 162) for d in dsyms):
+        raise ValueError(f"1..{_MAX_LANE_SETS} drift sets of ({L}, 162)")
+    if width < 256 or width % 64 or off < 0 or off + width > _W \
+            or span < 0:
+        raise ValueError(f"columns [{off}, {off + width}) of a {_W}-wide "
+                         f"window, span {span}: not a kernel call")
+    devs = {t.device for t in (ri, widx, base, lags, freqs, *dsyms)}
+    if len(devs) != 1:
+        raise ValueError("lane probe inputs lie on different devices")
+
+
+def probe_lanes(ri: torch.Tensor, widx: torch.Tensor, base: torch.Tensor,
+                dsyms, lags: torch.Tensor, freqs: torch.Tensor, *,
+                width: int, span: int, off: int = 0,
+                consts: dict[str, torch.Tensor] | None = None
+                ) -> torch.Tensor:
+    """lane_probe's tone powers at probe dtype "bf16" on a CUDA tensor:
+    (D, L, F, NL, 162, 4) f32, a view whose drift set d has the strides of
+    shared_probe_eval's p. The tone bank is built here by the plain
+    chain's operators (phasor_ramp of the probe freqs, complex64, neither
+    masked nor rounded: the kernel rounds it to bf16 as .to(torch.bfloat16)
+    does); everything else happens in one launch of csrc/probe_lanes.cu on
+    the current stream, counted in ``KERNEL_LAUNCHES``."""
+    global KERNEL_LAUNCHES
+    _check_lanes(ri, widx, base, dsyms, lags, freqs, width, span, off)
+    if ri.device.type != "cuda":
+        raise ValueError(f"probe_lanes: unsupported device {ri.device}")
+    if consts is None:
+        consts = probe_constants(ri.device)
+    L, F_ = freqs.shape
+    NL = lags.shape[1]
+    D = len(dsyms)
+    x = ri.contiguous()
+    dsym = (dsyms[0][None] if D == 1 else torch.stack(dsyms)).float()
+    dsym = dsym.contiguous()
+    ft = freqs[..., None] + consts["tones"]                      # (L, F, 4)
+    bank = phasor_ramp((-2.0 * np.pi * _DT) * ft, width).contiguous()
+    wi = widx.to(torch.int64).contiguous()
+    bs = base.to(torch.int64).contiguous()
+    lg = lags.to(torch.int64).contiguous()
+    out = torch.empty((D, L, 162, NL, F_, 4), dtype=torch.float32,
+                      device=ri.device)
+    lib = cuda_build.load_library()
+    code = lib.uwspr_probe_lanes(
+        x.data_ptr(), x.shape[-1], wi.data_ptr(), bs.data_ptr(), off, width,
+        dsym.data_ptr(), D, L, float(-2.0 * np.pi * _DT), bank.data_ptr(),
+        F_, lg.data_ptr(), NL, span, out.data_ptr(),
+        torch.cuda.current_stream(ri.device).cuda_stream)
+    cuda_build.check_launch("uwspr_probe_lanes", code)
+    if not torch.cuda.is_current_stream_capturing():
+        KERNEL_LAUNCHES += 1    # a capture only records it
+    return out.permute(0, 1, 4, 3, 2, 5)
+
+
+def lane_probe_tiling(n_lags: int, n_freqs: int, n_sets: int, width: int,
+                      span: int) -> dict[str, int]:
+    """The kernel's tiling of a lane_probe call of n_sets drift sets
+    (csrc/probe_lanes.cu, ``tiling``): symbols a thread, row groups a
+    block, threads a lag and a block, symbol tiles a lane, shared row
+    stride (words) and dynamic shared memory (bytes). Builds the kernel
+    library."""
+    import ctypes
+    buf = (ctypes.c_int * 7)()
+    cuda_build.load_library().uwspr_probe_lanes_tiling(
+        n_lags, n_freqs, n_sets, width, span, ctypes.addressof(buf))
+    return dict(zip(("symbols_per_thread", "groups", "threads_per_lag",
+                     "threads", "tiles", "row_words", "smem_bytes"), buf))
 
 
 # ---------------------------------------------------------------------------
@@ -455,8 +630,10 @@ class FineSync:
         return symbols, sync, rms
 
 
-__all__ = ["FineSync", "Refined", "complex_to_ri", "drift_offsets",
-           "eval_probe_grid", "eval_probe_grid_core", "jiggle_offsets",
+__all__ = ["FineSync", "KERNEL_LAUNCHES", "PLAIN_CALLS", "Refined",
+           "complex_to_ri", "drift_offsets", "eval_probe_grid",
+           "eval_probe_grid_core", "jiggle_offsets", "lane_probe",
+           "lane_probe_plain", "lane_probe_tiling", "lane_window_base",
            "make_shared_probe", "make_shared_probe_lanes", "phasor_ramp",
-           "probe_constants", "probe_derotate", "shared_probe_eval",
-           "sync_of_powers"]
+           "probe_constants", "probe_derotate", "probe_lanes",
+           "reset_counters", "shared_probe_eval", "sync_of_powers"]

@@ -76,6 +76,7 @@ from dataclasses import dataclass
 import torch
 
 from uwspr_tpu_torch.coarse import search
+from uwspr_tpu_torch.demod import finesync
 from uwspr_tpu_torch.device import to_device
 from uwspr_tpu_torch.fec import fano, osd_torch
 from uwspr_tpu_torch.ops import probe, select, stft
@@ -84,7 +85,8 @@ from uwspr_tpu_torch.utils.profiler import span
 # the kernel wrappers, by the name their launches are reported under
 COUNTED = (("select_best", select), ("fano_decode", fano),
            ("probe_powers", probe), ("stft_power", stft),
-           ("osd_decode", osd_torch), ("sync_grid", search))
+           ("osd_decode", osd_torch), ("sync_grid", search),
+           ("probe_lanes", finesync))
 
 # each wrapper's kernel, by the symbol its mangled name holds
 KERNEL_SYMBOLS = {"select_best": "select_best_kernel",
@@ -92,7 +94,8 @@ KERNEL_SYMBOLS = {"select_best": "select_best_kernel",
                   "probe_powers": "probe_powers_kernel",
                   "stft_power": "stft_power_mma",
                   "osd_decode": "osd_kernel",
-                  "sync_grid": "sync_grid_kernel"}
+                  "sync_grid": "sync_grid_kernel",
+                  "probe_lanes": "probe_lanes_kernel"}
 # the kernel launches of every replay in this process, by kernel
 REPLAY_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
 

@@ -8,10 +8,12 @@ JAX decoder jits (jit_decoder.py:156-176):
   the columns read) -> smoothed SNR spectrum -> peak pick -> coarse sync
   grid (the sync-grid kernel; bf16 planes when hpbm > 32) ->
   exact model selection (CUDA kernel) -> phase A/B probe refinement ->
-  joint fine grid, soft symbols over all jiggles, sync/rms gates,
-  deinterleave -> Fano (CUDA kernel) -> first success in jiggle
-  order -> on-device OSD of the worth candidates whose gated lanes all
-  failed (osd_depth > 0, fec/osd_torch.py) -> packed (W, C, 23) float32.
+  joint fine grid, soft symbols over all jiggles (each probe call one
+  lane-probe kernel launch at probe dtype "bf16", demod/finesync.py::
+  lane_probe), sync/rms gates, deinterleave -> Fano (CUDA kernel) ->
+  first success in jiggle order -> on-device OSD of the worth candidates
+  whose gated lanes all failed (osd_depth > 0, fec/osd_torch.py) ->
+  packed (W, C, 23) float32.
 
 The lanes the refinement runs on (``prefano``, one path): phase A/B on
 the head lanes, the valid candidates of the batch strongest coarse SNR
@@ -91,10 +93,9 @@ from uwspr_tpu_torch.coarse.search import (
 from uwspr_tpu_torch.config import PipelineConfig
 from uwspr_tpu_torch.demod.finesync import (
     complex_to_ri,
-    make_shared_probe_lanes,
+    lane_probe,
+    lane_window_base,
     probe_constants,
-    probe_derotate,
-    shared_probe_eval,
 )
 from uwspr_tpu_torch.device import exact_f32, resolve_device, to_device
 from uwspr_tpu_torch.fec.fano import fano_decode_batch, fano_decode_jiggles
@@ -194,9 +195,13 @@ class DeviceDecoder:
         self.fano_mode = fano_mode
         self.device = resolve_device(device)
         self.n_cand = max_peaks(self.config.coarse)
-        self.state = state_from_numpy(
-            state if state is not None else state_numpy(self.config),
-            self.device, keys=state_keys(self.config))
+        if state is None:
+            state = state_numpy(self.config)
+        self.state = state_from_numpy(state, self.device,
+                                      keys=state_keys(self.config))
+        # the spread of the jiggle lags, which the probe kernel sizes by
+        jig = np.asarray(state["jiggles"])
+        self._jiggle_span = int(jig.max() - jig.min())
         if self.state["jiggles"].shape[0] != self.config.demod.n_jiggles:
             raise ValueError("state jiggles do not match n_jiggles")
         # on-device OSD: only when osd_depth > 0 and osd_max_lanes > 0
@@ -437,14 +442,18 @@ class DeviceDecoder:
             slm_params[:, 3:4], float(self.config.coarse.cf), t[None, :])
         return torch.where((mode == 1)[:, None], nl, lin).float()
 
-    def _spe(self, *a, **k):
-        """shared_probe_eval at the config's probe dtype."""
-        return shared_probe_eval(*a, dtype=self.config.demod.probe_dtype,
-                                 consts=self._probe_consts, **k)
+    def _probe(self, ri, widx, base, dsyms, lags, freqs, **k):
+        """lane_probe at the config's probe dtype: a (sync, p) per drift
+        set."""
+        return lane_probe(ri, widx, base, dsyms, lags, freqs,
+                          dtype=self.config.demod.probe_dtype,
+                          consts=self._probe_consts, **k)
 
-    def _refine_common(self, st: dict, probe) -> dict:
+    def _refine_common(self, st: dict, ri: torch.Tensor,
+                       widx: torch.Tensor) -> dict:
         """Phase A (coarse lag/freq joint grid) and phase B (linear drift
-        +/-0.5) over the head lanes (jit_decoder.py:412-502)."""
+        +/-0.5) over the head lanes, lane l reading window widx[l] of ri
+        (jit_decoder.py:412-502)."""
         dcfg = self.config.demod
         dev = st["freq"].device
         marks.mark("refine", st["freq"])
@@ -456,33 +465,32 @@ class DeviceDecoder:
         shift1 = st["shift"]
         drift1 = st["drift"]
         dsym = self._drift_offsets(mode, drift1, slm_params)
+        N = ri.shape[-1]
 
         # phase A: W = 640 is exactly minimal for the +/-128 lag grid at
         # block 128 (jit_decoder.py:446-450); never narrow it
-        Amat1, base1 = probe(shift1, 128, 640, 128)
-        zd1 = probe_derotate(Amat1, dsym)
+        base1 = lane_window_base(shift1, N, reach=128, W=640, block=128)
         lag_grid = shift1[:, None] + torch.arange(-128, 129, 64, device=dev)
         freq_grid = f1[:, None] + _offsets_f32(0.25, dev)[None, :]
-        s = self._spe(zd1, base1, lag_grid, freq_grid, n_lags=5)  # (C, 5, 5)
+        [(s, _)] = self._probe(ri, widx, base1, [dsym], lag_grid, freq_grid,
+                               width=640, span=256)              # (C, 5, 5)
         li = torch.argmax(s[:, 2, :], dim=1)          # stage 0: lag @ f0
         shift1 = lag_grid[cidx, li]
         fi2 = torch.argmax(s[cidx, :, li], dim=1)     # stage 1: freq @ lag
         f1 = freq_grid[cidx, fi2]
         sync1 = s[cidx, fi2, li]
 
-        # phase B: window centred on the refined lag
-        Amat2, base2 = probe(shift1, 96, 640, 128)
-        Amat2d = Amat2[..., 96:480]
-        base2d = base2 + 96
+        # phase B: window centred on the refined lag, both drifts on its
+        # columns [96, 480)
+        base2 = lane_window_base(shift1, N, reach=96, W=640, block=128)
         is_lin = mode != 1
         driftp = drift1 + 0.5
         driftm = drift1 - 0.5
-        sp = self._spe(probe_derotate(Amat2d, self._drift_offsets(
-            mode, driftp, slm_params)), base2d, shift1[:, None],
-            f1[:, None], n_lags=1)[:, 0, 0]
-        sm_ = self._spe(probe_derotate(Amat2d, self._drift_offsets(
-            mode, driftm, slm_params)), base2d, shift1[:, None],
-            f1[:, None], n_lags=1)[:, 0, 0]
+        (sp, _), (sm_, _) = self._probe(
+            ri, widx, base2, [self._drift_offsets(mode, driftp, slm_params),
+                              self._drift_offsets(mode, driftm, slm_params)],
+            shift1[:, None], f1[:, None], width=384, off=96, span=0)
+        sp, sm_ = sp[:, 0, 0], sm_[:, 0, 0]
         updp = is_lin & (sp > sync1)
         updm = is_lin & ~updp & (sm_ > sync1)
         drift1 = torch.where(updp, driftp, torch.where(updm, driftm, drift1))
@@ -490,13 +498,13 @@ class DeviceDecoder:
         return {
             "valid": valid, "snr": st["snr"], "freq": f1, "shift": shift1,
             "drift": drift1, "mode": mode, "slm_params": slm_params,
-            "sync1": sync1, "worth0": sync1 > dcfg.minsync1,
-            "Amat2": Amat2, "base2": base2,
+            "worth0": sync1 > dcfg.minsync1, "widx": widx, "base2": base2,
         }
 
-    def _prefano_tail(self, st: dict) -> dict:
+    def _prefano_tail(self, st: dict, ri: torch.Tensor) -> dict:
         """Joint fine grid, soft symbols over all jiggles, gates and
-        deinterleave over the tail lanes (jit_decoder.py:504-570)."""
+        deinterleave over the tail lanes, each reading phase B's window of
+        ri (jit_decoder.py:504-570)."""
         dcfg = self.config.demod
         dev = st["freq"].device
         marks.mark("prefano_tail", st["freq"])
@@ -506,13 +514,13 @@ class DeviceDecoder:
         f1, shift1, drift1 = st["freq"], st["shift"], st["drift"]
         mode, slm_params = st["mode"], st["slm_params"]
         dsym = self._drift_offsets(mode, drift1, slm_params)
-        zd2 = probe_derotate(st["Amat2"], dsym)
-        base2 = st["base2"]
+        widx, base2 = st["widx"], st["base2"]
 
         worth = st["worth0"]
         lag_grid = shift1[:, None] + torch.arange(-32, 33, 16, device=dev)
         freq_grid = f1[:, None] + _offsets_f32(0.05, dev)[None, :]
-        s = self._spe(zd2, base2, lag_grid, freq_grid, n_lags=5)  # (C, 5, 5)
+        [(s, _)] = self._probe(ri, widx, base2, [dsym], lag_grid, freq_grid,
+                               width=640, span=64)               # (C, 5, 5)
         li = torch.argmax(s[:, 2, :], dim=1)
         shift1 = torch.where(worth, lag_grid[cidx, li], shift1)
         # fine freq at the post-fine-lag shift: the chosen-lag column if
@@ -525,8 +533,9 @@ class DeviceDecoder:
         # soft symbols over all jiggles
         jig = self.state["jiggles"]
         lag_grid = shift1[:, None] + jig[None, :]
-        sync2, p = self._spe(zd2, base2, lag_grid, f1[:, None],
-                             n_lags=jig.shape[0], want_symbols=True)
+        [(sync2, p)] = self._probe(ri, widx, base2, [dsym], lag_grid,
+                                   f1[:, None], width=640,
+                                   span=self._jiggle_span)
         sync2 = sync2[:, 0, :]                                  # (C, J)
         p = p[:, 0]                                             # (C,J,162,4)
         fsymb = torch.where(self.state["sync_bit"][None, None, :],
@@ -572,7 +581,7 @@ class DeviceDecoder:
             sel = None
             widx = torch.arange(W, device=dev).repeat_interleave(C)
             st = flat
-        head = self._refine_common(st, self._lane_probe(z_all, widx))
+        head = self._refine_common(st, ri, widx)
         n_head = head["valid"].shape[0]
 
         # tail lanes (fine grid to deinterleave): the worthy head lanes
@@ -585,11 +594,11 @@ class DeviceDecoder:
                 :min(dcfg.refine_max_lanes or n_head, n_head)]
             sub = {k: head[k][sel2]
                    for k in ("valid", "freq", "shift", "drift", "mode",
-                             "slm_params", "sync1", "Amat2", "base2")}
+                             "slm_params", "widx", "base2")}
             sub["worth0"] = worthy[sel2]
         else:
             sel2, sub = None, head
-        tail = self._prefano_tail(sub)
+        tail = self._prefano_tail(sub, ri)
         # the tail lanes among the L
         gsel = sel2 if sel is None else sel[sel2]
 
@@ -637,13 +646,6 @@ class DeviceDecoder:
                for k in ("sync2", "gate", "deint")},
             "refine_overflow": overflow,
         }
-
-    def _lane_probe(self, z_all: torch.Tensor, widx: torch.Tensor):
-        """The probe builder of _refine_common for lanes that read window
-        widx[l] of z_all."""
-        pdt = "bf16" if self.config.demod.probe_dtype == "bf16" else "c64"
-        return lambda center, reach, Wp, block: make_shared_probe_lanes(
-            z_all, widx, center, reach=reach, W=Wp, block=block, dtype=pdt)
 
     # -- Fano (jit_decoder.py:865-1022) -------------------------------------
 

@@ -15,8 +15,9 @@ or another toolkit is rebuilt at first use and an unchanged one is loaded as
 it is. There is no ``--use_fast_math``: the selection kernel relies on
 subnormals and IEEE compares, the probe kernel on sincosf's full range
 reduction, the STFT kernel on round-to-nearest products, the OSD kernel
-on IEEE quality and margin divisions and the sync-grid kernel on IEEE
-square roots and divisions. The first
+on IEEE quality and margin divisions, the sync-grid kernel on IEEE
+square roots and divisions, and the lane-probe kernel on cosf/sinf as
+torch.cos/torch.sin compute them and on IEEE square roots. The first
 kernel call in a process builds and loads; nothing is built at import
 time.
 """
@@ -70,6 +71,13 @@ _SIGNATURES = {
     "uwspr_stft_power": [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
                          _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_int,
                          _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p],
+    "uwspr_probe_lanes_tiling": [_C.c_int, _C.c_int, _C.c_int, _C.c_int,
+                                 _C.c_int, _C.c_void_p],
+    "uwspr_probe_lanes": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
+                          _C.c_int, _C.c_int, _C.c_void_p, _C.c_int,
+                          _C.c_int, _C.c_float, _C.c_void_p, _C.c_int,
+                          _C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,
+                          _C.c_void_p],
     "uwspr_sync_grid_smem": [_C.c_int, _C.c_int],
     "uwspr_sync_grid": [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
                         _C.c_int, _C.c_void_p, _C.c_int, _C.c_void_p,
