@@ -147,7 +147,12 @@ Phases, each raising on failure (nothing is caught):
    timeouts (held to the native decoder; the plain version would take
    hours there, so it is not timed). Selection is also timed on the
    wideband (6400, 5, 26, 126) grid, and the STFT on the wideband
-   (32, 348, 512) call. Then the runtimes, in turns, with
+   (32, 348, 512) call. The multipass subtraction kernel
+   (subtract_lanes, timing_subtract_lanes) is timed at narrow_masked_w32's
+   shape on the first subtraction stage of a passes = 3 decode, held to
+   its g++ twin (within 1e-6 of each window's largest sample, the lags
+   equal), with the launches of one passes = 3 replay (2). Then the
+   runtimes, in turns, with
    CUDA events behind the spin kernel and on the host clock: the ring's ms
    per hop (f32 and int16 ingest) beside DeviceDecoder on the same
    windows, BatchedStreamDecoder and StreamDecoder(engine="device") per
@@ -4628,6 +4633,120 @@ def timing_probe_lanes(card):
     return out
 
 
+F64_FMA_S = 64 * 132 * 1.98e9   # H100 SXM: 64 DFMA a clock an SM, boost clock
+SUB_TOL = 1e-6                  # of the window's largest sample
+
+
+def masked_windows(n: int, seed: int = 23):
+    """n windows of the masked cell's traffic (wsprbench's cycle_masked):
+    a strong frame at -13 dB, +-4 Hz, and a weak one 9 dB below it 1 to 2
+    Hz away on either side, independent starts in [0, 2000)."""
+    from uwspr_tpu_torch.io.channel import awgn
+    from uwspr_tpu_torch.protocol.modulate import synthesize_frame
+    rng = np.random.default_rng(seed)
+    zs = []
+    for _ in range(n):
+        f = rng.uniform(-4.0, 4.0)
+        sep = rng.uniform(1.0, 2.0) * rng.choice([-1.0, 1.0])
+        strong = synthesize_frame(*STRONG, freq_offset=f,
+                                  start_sample=int(rng.integers(0, 2000)))
+        weak = synthesize_frame(*WEAK, freq_offset=f + sep,
+                                start_sample=int(rng.integers(0, 2000)))
+        zs.append(awgn(strong + 10.0 ** (-9.0 / 20.0) * weak, -13.0,
+                       rng=rng))
+    return np.stack([np.stack([z.real, z.imag]) for z in zs]).astype(
+        np.float32)
+
+
+def timing_subtract_lanes(card, W: int = 32):
+    """The multipass subtraction kernel at narrow_masked_w32's shape: the
+    (W, 2, 45000) batch and the first subtraction stage's lanes of a
+    passes = 3 decode (subtract_max_lanes 2 W), recorded from the decoder's
+    own call. The kernel is held to its g++ twin (the CPU build of the same
+    lane arithmetic, itself held to multipass.subtract_spot in tier-1):
+    every sample within SUB_TOL of the window's largest, the polished lags
+    equal. The launches of one captured passes = 3 decode are read around
+    it (one a subtraction stage). Bound: the float64 multiply-adds of the
+    frames the launch subtracts (two lag polishes of 33 gain evaluations,
+    the first frequency polish, the final gains and the fit, 4 a sample)
+    at the card's float64 rate, or the frames' window bytes read and
+    written, whichever is larger. Returns the kernels-line entry."""
+    import torch
+
+    from uwspr_tpu_torch.config import (DemodConfig, MultipassConfig,
+                                        PipelineConfig,
+                                        with_serving_defaults)
+    from uwspr_tpu_torch.ops import subtract as S
+    from uwspr_tpu_torch.pipeline import captured, device_decoder
+    cfg = with_serving_defaults(PipelineConfig(
+        demod=DemodConfig(maxcycles=500, osd_depth=4, osd_max_lanes=64),
+        multipass=MultipassConfig(passes=3)), W)
+    dec = device_decoder.DeviceDecoder(cfg, device="cuda")
+    ri_c = torch.from_numpy(masked_windows(W)).cuda()
+    dec.decode_windows_ri(ri_c)                  # captures the shape
+    torch.cuda.synchronize()
+    reset_all_counters()
+    dec.decode_windows_ri(ri_c)
+    torch.cuda.synchronize()
+    launches = read_counters()[0]["subtract_lanes"]
+    require(launches == 2, f"subtract_lanes: {launches} launches in a "
+            f"passes = 3 replay, not 2")
+    calls = []
+    real = device_decoder.subtract_lanes
+
+    def record(res, *a, **k):
+        calls.append((res.clone(), [x.clone() for x in a], dict(k)))
+        return real(res, *a, **k)
+    device_decoder.subtract_lanes = record
+    try:
+        with captured.eager():
+            dec.decode_windows_ri(ri_c)
+    finally:
+        device_decoder.subtract_lanes = real
+    torch.cuda.synchronize()
+    res0, args, kw = calls[0]
+    frames = int(args[1].sum())
+    work = torch.empty_like(res0)
+
+    def kernel():
+        work.copy_(res0)
+        return S.subtract_lanes(work, *args, **kw)
+    ms, turns, outs = time_turns([("kernel", kernel)], {"kernel": 10})
+    got = work.cpu()
+    info = outs["kernel"].cpu()
+    twin = res0.cpu()
+    t0 = time.perf_counter()
+    twin_info = S.subtract_lanes(twin, *[x.cpu() for x in args], **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for w in range(W):
+        peak = float(twin[w].abs().max())
+        d = float((got[w] - twin[w]).abs().max())
+        require(d <= SUB_TOL * peak, f"subtract_lanes window {w}: kernel "
+                f"differs from its twin by {d} (peak {peak})")
+        err = max(err, d)
+    require(torch.equal(info[:, :2], twin_info[:, :2]),
+            "subtract_lanes: polished lags differ from the twin's")
+    fma = frames * 69 * S.FRAME * 4
+    nbytes = frames * S.FRAME * 16
+    e = entry("subtract_lanes", "subtract_lanes.cu",
+              "none: the JAX package subtracts on the host in numpy "
+              "(uwspr_tpu/pipeline/multipass.py::subtract_spot)",
+              [W, 2, 45000, int(args[0].shape[0])], ms["kernel"], plain_ms,
+              bound(nbytes, 2.0 * fma, 2.0 * F64_FMA_S, "f64 FMA"),
+              "none", None, err)
+    e.update(frames=frames, launches=launches,
+             plain="the g++ twin on the host CPU (not a device time)")
+    log(f"[timing] {card}: subtract_lanes (W={W}, {args[0].shape[0]} "
+        f"lanes, {frames} frames): kernel {ms['kernel']:.4f} ms (turns "
+        f"{fmt_turns(turns)}); bound {e['bound_ms']:.4f} ms "
+        f"({e['bound_kind']}), {100 * e['bound_share']:.1f} % of it; twin "
+        f"{plain_ms:.1f} ms on the host; within {err:.3g} of the twin, "
+        f"lags equal; {launches} launches a passes = 3 replay")
+    del dec
+    return e
+
+
 def main() -> int:
     card, sm_mhz = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -4678,6 +4797,7 @@ def main() -> int:
     stfts = timing_stft(card, z, kw, stft_inputs, wide)
     grids = timing_sync_grid(card, dec, ri_c, sm_mhz)
     lanes = timing_probe_lanes(card)
+    subs = timing_subtract_lanes(card)
     runtimes = timing_runtimes(card, stream, ring, htod)
     osd_e = osd["entry"]
     sel = sels["device"]
@@ -4747,7 +4867,7 @@ def main() -> int:
         for k, v in lanes.items() if v is not lan}
     lan["launches"] = launches["probe_lanes"]
     print(json.dumps({"kernels": [sel, fan, jig, prb, stf, osd_e, grd,
-                                  lan]}), flush=True)
+                                  lan, subs]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -205,7 +205,7 @@ def test_graph_kernel_nodes_counted_by_kernel():
     assert dot_kernels(DOT) == {"select_best": 1, "fano_decode": 2,
                                 "probe_powers": 0, "stft_power": 1,
                                 "osd_decode": 1, "sync_grid": 1,
-                                "probe_lanes": 0}
+                                "probe_lanes": 0, "subtract_lanes": 0}
     assert set(KERNEL_SYMBOLS) == {n for n, _ in captured.COUNTED}
     assert dot_kernels("digraph dot {\n}\n") == dict.fromkeys(
         KERNEL_SYMBOLS, 0)
@@ -222,7 +222,7 @@ def test_replay_launches_are_in_the_counts():
         assert launches == {"select_best": 3, "fano_decode": 6,
                             "probe_powers": 0, "stft_power": 0,
                             "osd_decode": 0, "sync_grid": 0,
-                            "probe_lanes": 0}
+                            "probe_lanes": 0, "subtract_lanes": 0}
         assert not any(plain.values())
     finally:
         replay.reset_counters()

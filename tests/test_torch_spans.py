@@ -12,7 +12,9 @@ its device decode (ops/marks.py, csrc/marks.cu), on the CPU.
 - A recording hook on ``marks.mark`` sees ``STAGES`` in order, each once
   a batch, on the compacted, uncompacted (refine_max_lanes), wideband,
   one-jiggle, ``osd_depth`` 4 and hybrid paths: ``fano2`` only where
-  J > 1, ``osd`` only with the device OSD, no Fano stage in the hybrid.
+  J > 1, ``osd`` only with the device OSD, no Fano stage in the hybrid,
+  ``subtract`` on none of these single-pass paths (a multipass decode's
+  markers are tests/test_torch_subtract_lanes.py's).
 - ``marks.mark`` launches nothing for a CPU tensor; the C entry point's
   stages follow ``STAGES``.
 
@@ -182,7 +184,7 @@ def one_jiggle(cfg):
     return dc.replace(cfg, demod=dc.replace(cfg.demod, n_jiggles=1))
 
 
-ALL = [s for s in marks.STAGES if s != "osd"]
+ALL = [s for s in marks.STAGES if s not in ("osd", "subtract")]
 PATHS = {
     "compacted": (SERVING, "device", ALL),
     "refine_max_lanes": (PipelineConfig(demod=dc.replace(
@@ -193,7 +195,8 @@ PATHS = {
     "one jiggle": (one_jiggle(SERVING), "device",
                    [s for s in ALL if s != "fano2"]),
     "osd_depth 4": (dc.replace(SERVING, demod=dc.replace(
-        SERVING.demod, osd_depth=4)), "device", list(marks.STAGES)),
+        SERVING.demod, osd_depth=4)), "device",
+        [s for s in marks.STAGES if s != "subtract"]),
     "hybrid": (SERVING, "host", [s for s in ALL
                                  if s not in ("fano1", "fano2")]),
 }

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -537,11 +538,18 @@ def _cmd_serve(args):
     ht = HashTable.load(args.hashtable) if args.hashtable else HashTable()
     config = _args_config(args)
     fano_mode = "host" if args.engine == "hybrid" else "device"
+    if args.runtime in ("native", "ring") and args.passes > 1:
+        # the device engine's batch program runs the passes and subtracts
+        # between them on the device (MultipassConfig); the python runtime
+        # keeps the host subtraction (StreamDecoder(passes=...))
+        if fano_mode == "host":
+            raise SystemExit("--passes with --runtime native or ring needs "
+                             "--engine device (the hybrid engine decodes "
+                             "one pass), or --runtime python")
+        base = config or PipelineConfig()
+        config = dataclasses.replace(base, multipass=dataclasses.replace(
+            base.multipass, passes=args.passes))
     if args.runtime == "native":
-        if args.passes > 1:
-            raise SystemExit("--passes requires --runtime python "
-                             "(interference cancellation re-decodes each "
-                             "window between passes)")
         if args.engine == "host":
             raise SystemExit("--runtime native serves through the batched "
                              "device engines; use --engine device/hybrid, "
@@ -552,8 +560,6 @@ def _cmd_serve(args):
                                   fano_mode=fano_mode, device=device)
         hop = sd.config.stream.shift * sd.config.stream.fs
     elif args.runtime == "ring":
-        if args.passes > 1:
-            raise SystemExit("--passes requires --runtime python")
         if args.engine == "host":
             raise SystemExit("--runtime ring serves through the batched "
                              "device engines; use --engine device/hybrid")
@@ -906,8 +912,11 @@ def _parser() -> argparse.ArgumentParser:
     v.add_argument("--batch", type=int, default=8,
                    help="windows per batch for --runtime native")
     v.add_argument("--passes", type=int, default=1,
-                   help="interference-cancellation passes per window "
-                        "(python runtime)")
+                   help="interference-cancellation passes per window: "
+                        "the host subtraction between decodes (python "
+                        "runtime), or the device engine's batch program "
+                        "subtracting on the device (native and ring "
+                        "runtimes, --engine device)")
     v.add_argument("--channels", type=int, default=4)
     v.add_argument("--windows", type=int, default=30,
                    help="hop-blocks to stream (first window after 14); "

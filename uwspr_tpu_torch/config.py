@@ -286,12 +286,34 @@ class FrontendConfig:
 
 
 @dataclass(frozen=True)
+class MultipassConfig:
+    """Successive interference cancellation inside the device engine's
+    batch program (pipeline/device_decoder.py): ``passes`` decodes of each
+    batch, every new decoded frame subtracted on the device between them
+    (csrc/subtract_lanes.cu, the semantics of pipeline/multipass.py's
+    ``subtract_spot`` and ``multipass_spots``). A port-only section: the
+    JAX package's config has none, and ``passes`` 1 is the single-pass
+    program. ``StreamDecoder(passes=...)`` keeps the host subtraction and
+    does not read this section. The subtraction's own settings are
+    multipass.py's constants, ``subtract_spot``'s defaults."""
+
+    passes: int = 1
+    # frames subtracted a pass over the whole batch, window-major; a frame
+    # over the cap is not subtracted and counts in its window's
+    # fano_overflow. 0 = 2 x the batch width (with_serving_defaults), or
+    # every candidate slot of the batch where no serving default applies
+    subtract_max_lanes: int = 0
+
+
+@dataclass(frozen=True)
 class PipelineConfig:
     coarse: CoarseConfig = dataclasses.field(default_factory=CoarseConfig)
     demod: DemodConfig = dataclasses.field(default_factory=DemodConfig)
     stream: StreamConfig = dataclasses.field(default_factory=StreamConfig)
     frontend: FrontendConfig = dataclasses.field(default_factory=FrontendConfig)
     fano_backend: str = "native"   # "native" (C++ host) | "jax" (batched TPU)
+    multipass: MultipassConfig = dataclasses.field(
+        default_factory=MultipassConfig)
 
 
 DEFAULT_CONFIG = PipelineConfig()
@@ -339,6 +361,11 @@ def with_serving_defaults(config: PipelineConfig,
     d, c = config.demod, config.coarse
     upd = {}
     upd_coarse = {}
+    if config.multipass.subtract_max_lanes == 0 and batch_windows > 1:
+        # the device multipass subtracts at most 2 x the batch width a
+        # pass, the narrowband rule of the other lane caps
+        config = dataclasses.replace(config, multipass=dataclasses.replace(
+            config.multipass, subtract_max_lanes=2 * batch_windows))
     if d.probe_dtype == "f32":
         upd["probe_dtype"] = "bf16"
     if c.stft_impl == "auto":
@@ -385,5 +412,5 @@ def with_serving_defaults(config: PipelineConfig,
 
 __all__ = [
     "CoarseConfig", "DemodConfig", "StreamConfig", "FrontendConfig",
-    "PipelineConfig", "DEFAULT_CONFIG", "with_serving_defaults",
+    "MultipassConfig", "PipelineConfig", "DEFAULT_CONFIG", "with_serving_defaults",
 ]

@@ -8,8 +8,9 @@
 // uwspr_mark_end after the packed output is written.
 //
 // Each marker is one thread that does nothing: about a microsecond of
-// device time a launch, eleven launches a replay. extern "C" keeps the
-// kernels' names unmangled, so a trace shows them as written here.
+// device time a launch, eleven launches a single-pass replay. extern "C"
+// keeps the kernels' names unmangled, so a trace shows them as written
+// here.
 
 #include <cuda_runtime.h>
 
@@ -24,6 +25,7 @@ __global__ void uwspr_mark_prefano_tail() {}
 __global__ void uwspr_mark_fano1() {}
 __global__ void uwspr_mark_fano2() {}
 __global__ void uwspr_mark_osd() {}
+__global__ void uwspr_mark_subtract() {}
 __global__ void uwspr_mark_pack() {}
 __global__ void uwspr_mark_end() {}
 
@@ -42,8 +44,9 @@ int uwspr_mark(int stage, void* stream) {
     case 6: uwspr_mark_fano1<<<1, 1, 0, s>>>(); break;
     case 7: uwspr_mark_fano2<<<1, 1, 0, s>>>(); break;
     case 8: uwspr_mark_osd<<<1, 1, 0, s>>>(); break;
-    case 9: uwspr_mark_pack<<<1, 1, 0, s>>>(); break;
-    case 10: uwspr_mark_end<<<1, 1, 0, s>>>(); break;
+    case 9: uwspr_mark_subtract<<<1, 1, 0, s>>>(); break;
+    case 10: uwspr_mark_pack<<<1, 1, 0, s>>>(); break;
+    case 11: uwspr_mark_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -21,12 +21,18 @@ with the host's ``uwspr.*`` spans (``utils/profiler.py::span``).
   holds the whole walk and ``fano2`` the first-success selection after
   it;
 - ``osd``: the device OSD (osd_depth > 0);
+- ``subtract``: the multipass subtraction after each pass but the last
+  (``MultipassConfig.passes`` > 1): the compaction of the pass's new
+  decodes and the subtraction kernel; the next pass then opens with its
+  own ``stft`` marker, so a multipass replay holds the markers from
+  ``stft`` to ``subtract`` once a pass (``osd`` to ``subtract`` not in
+  the last) and ``pack`` and ``end`` once;
 - ``pack``: the packed output;
 - ``end``.
 
 A marker is a one-thread kernel that does nothing. The markers are always
-on: a replay holds about eleven more kernel nodes. On a CPU tensor
-``mark`` does nothing.
+on: a single-pass replay holds about eleven more kernel nodes. On a CPU
+tensor ``mark`` does nothing.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 from uwspr_tpu_torch.utils import cuda_build
 
 STAGES = ("stft", "coarse", "select", "compact", "refine", "prefano_tail",
-          "fano1", "fano2", "osd", "pack", "end")
+          "fano1", "fano2", "osd", "subtract", "pack", "end")
 _INDEX = {s: i for i, s in enumerate(STAGES)}
 
 

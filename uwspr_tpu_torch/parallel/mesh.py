@@ -374,7 +374,8 @@ class ShardedStreamDecoder:
                                                         + packed.shape[2:]))
             packed = DeviceDecoder._pack({
                 f.name: torch.as_tensor(getattr(asm, f.name))
-                for f in dataclasses.fields(asm)})
+                for f in dataclasses.fields(asm)
+                if getattr(asm, f.name) is not None})
             packed = packed.reshape(lead + packed.shape[1:])
         out = dec.unpack_output(self.gather(packed)[:, :n_windows])
         results = []

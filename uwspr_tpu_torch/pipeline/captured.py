@@ -79,14 +79,14 @@ from uwspr_tpu_torch.coarse import search
 from uwspr_tpu_torch.demod import finesync
 from uwspr_tpu_torch.device import to_device
 from uwspr_tpu_torch.fec import fano, osd_torch
-from uwspr_tpu_torch.ops import probe, select, stft
+from uwspr_tpu_torch.ops import probe, select, stft, subtract
 from uwspr_tpu_torch.utils.profiler import span
 
 # the kernel wrappers, by the name their launches are reported under
 COUNTED = (("select_best", select), ("fano_decode", fano),
            ("probe_powers", probe), ("stft_power", stft),
            ("osd_decode", osd_torch), ("sync_grid", search),
-           ("probe_lanes", finesync))
+           ("probe_lanes", finesync), ("subtract_lanes", subtract))
 
 # each wrapper's kernel, by the symbol its mangled name holds
 KERNEL_SYMBOLS = {"select_best": "select_best_kernel",
@@ -95,7 +95,8 @@ KERNEL_SYMBOLS = {"select_best": "select_best_kernel",
                   "stft_power": "stft_power_mma",
                   "osd_decode": "osd_kernel",
                   "sync_grid": "sync_grid_kernel",
-                  "probe_lanes": "probe_lanes_kernel"}
+                  "probe_lanes": "probe_lanes_kernel",
+                  "subtract_lanes": "subtract_lanes_kernel"}
 # the kernel launches of every replay in this process, by kernel
 REPLAY_LAUNCHES = dict.fromkeys(KERNEL_SYMBOLS, 0)
 

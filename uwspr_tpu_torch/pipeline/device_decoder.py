@@ -72,6 +72,29 @@ starts with its marker kernel (ops/marks.py), in ``marks.STAGES`` order,
 and ``uwspr_mark_end`` follows the packed output, so a device trace of a
 replay splits by stage.
 
+Multipass (``config.multipass.passes`` P > 1, the device engine): the
+batch program decodes the batch P times inside the one captured graph,
+WSJT-X's successive cancellation (pipeline/multipass.py's
+``multipass_spots`` for every window of the batch at once). Pass 1 is the
+single-pass program on the input. After each pass but the last, the pass's
+new decodes (a decode whose payload an earlier pass reported in its window
+within ``multipass.DUP_FREQ_HZ`` is a duplicate, dropped from the output) are
+compacted window-major to ``subtract_max_lanes`` lanes and subtracted from
+a residual copy of the batch (ops/subtract.py, one kernel launch: each
+window's frames in order, each fitted against the residual of the ones
+before it); a frame over the cap is not subtracted and counts in its
+window's ``fano_overflow``. The next pass decodes the residual, with the
+candidates of every window where nothing was subtracted marked invalid
+before the lane compaction, so its Fano and OSD lanes are those of the
+windows that changed. Every shape is fixed by the config and the batch and
+nothing waits on the host. The packed output is (W, P*C, 23): slot p*C + c
+is pass p's candidate c, each window's fano_attempts and fano_overflow are
+the sums over the passes; ``unpack_output(a, n_cand)`` gives each slot's
+pass (``pass_index``), and ``spots`` sets it. ``mp_counts`` (MP_TALLY) is
+the device tally of the passes, read by ``mp_tally()``. With P == 1 the
+program is the single-pass one, operator for operator. The hybrid engine
+(fano_mode "host") refuses P > 1.
+
 truncate_stage is not ported (the stage markers split the stages) and
 raises NotImplementedError.
 """
@@ -106,9 +129,12 @@ from uwspr_tpu_torch.models.slm import slm_frequency_drift_torch
 from uwspr_tpu_torch.ops import marks
 from uwspr_tpu_torch.ops.select import select_best
 from uwspr_tpu_torch.ops.stft import stft_constants, stft_power_core
+from uwspr_tpu_torch.ops.subtract import subtract_lanes
 from uwspr_tpu_torch.params import state_from_numpy, state_keys, state_numpy
 from uwspr_tpu_torch.pipeline.captured import CapturedProgram
 from uwspr_tpu_torch.pipeline.decoder import Spot
+from uwspr_tpu_torch.pipeline.multipass import (DUP_FREQ_HZ, FREQ_ITERS,
+                                               LAG_SEARCH, NFILT)
 from uwspr_tpu_torch.protocol.constants import FANO_METTAB, N_CODED_BITS
 from uwspr_tpu_torch.protocol.messages import unpack_message
 from uwspr_tpu_torch.utils.profiler import span
@@ -120,6 +146,18 @@ FANO_TALLY = ("decodes", "speculative_lanes", "speculative_aborted",
 # DeviceDecoder.osd_counts, by index
 OSD_TALLY = ("decodes", "active_lanes", "accepted_margin",
              "accepted_agreement", "dropped")
+# DeviceDecoder.mp_counts, by index: the decodes that ran the passes, the
+# frames subtracted, the new frames over subtract_max_lanes, the
+# duplicates dropped; then, for each pass, MP_PASS_TALLY
+MP_TALLY = ("decodes", "subtracted", "over_cap", "duplicates")
+MP_PASS_TALLY = ("windows", "spots")    # windows decoded, new spots
+
+
+def mp_tally_names(passes: int) -> tuple[str, ...]:
+    """The names of ``mp_counts`` at ``passes`` passes: MP_TALLY, then
+    ``<name>_pass<p>`` for p = 1..passes and each name of MP_PASS_TALLY."""
+    return MP_TALLY + tuple(f"{k}_pass{p}" for p in range(1, passes + 1)
+                            for k in MP_PASS_TALLY)
 
 
 @dataclass
@@ -141,11 +179,15 @@ class DeviceDecoderOutput:
     fano_overflow: np.ndarray  # per window: lanes dropped by the lane caps
     fano_attempts: np.ndarray  # per window: gated (candidate, jiggle) lanes
     osd: np.ndarray            # 0 = Fano decode, else the OSD order
+    # the multipass pass (0-based) of each slot; None for one pass
+    pass_index: np.ndarray | None = None
 
     def window(self, w: int) -> "DeviceDecoderOutput":
         return DeviceDecoderOutput(**{
             f.name: getattr(self, f.name)[w]
-            for f in dataclasses.fields(self)})
+            for f in dataclasses.fields(self) if f.name != "pass_index"},
+            pass_index=(None if self.pass_index is None
+                        else self.pass_index[w]))
 
 
 FANO_MODES = ("device", "host")
@@ -192,6 +234,13 @@ class DeviceDecoder:
         check_slice(self.config, fano_mode)
         if fano_mode == "host":
             check_backend(self.config.fano_backend)
+        passes = self.config.multipass.passes
+        if passes < 1:
+            raise ValueError(f"multipass.passes must be >= 1, got {passes}")
+        if passes > 1 and fano_mode == "host":
+            raise ValueError("multipass runs in the device engine's batch "
+                             "program; the hybrid engine (fano_mode "
+                             "'host') takes one pass")
         self.fano_mode = fano_mode
         self.device = resolve_device(device)
         self.n_cand = max_peaks(self.config.coarse)
@@ -215,6 +264,10 @@ class DeviceDecoder:
         # OSD_TALLY over every _osd_rescue call (see osd_tally)
         self.osd_counts = torch.zeros(len(OSD_TALLY), dtype=torch.int64,
                                       device=self.device)
+        # mp_tally_names(passes) over every multipass decode (see mp_tally)
+        self.mp_names = mp_tally_names(passes)
+        self.mp_counts = torch.zeros(len(self.mp_names), dtype=torch.int64,
+                                     device=self.device)
         # the batch program on a card (None on the CPU, which runs eagerly)
         self.program = (CapturedProgram(self.device, self._decode)
                         if self.device.type == "cuda" else None)
@@ -278,6 +331,10 @@ class DeviceDecoder:
         packed output (full f32 products, no autograd), each stage after
         its marker (ops/marks.py)."""
         with torch.no_grad(), exact_f32():
+            if self.config.multipass.passes > 1:
+                packed = self._decode_passes(ri)
+                marks.mark("end", ri)
+                return packed
             pre = self.prefano(ri)
             if self.fano_mode == "host":
                 marks.mark("pack", ri)
@@ -310,7 +367,11 @@ class DeviceDecoder:
                 host, done = queued
                 done.synchronize()
                 packed = host
-            return self.unpack_output(packed)
+            # a single pass gives no pass_index, so its host path (the
+            # ring's device_result a channel) is the single-pass one
+            return self.unpack_output(
+                packed,
+                self.n_cand if self.config.multipass.passes > 1 else None)
 
     def decode_batch(self, zs: np.ndarray) -> DeviceDecoderOutput:
         """(W, fl) complex windows -> batched output (leading axis W)."""
@@ -554,15 +615,20 @@ class DeviceDecoder:
         return {"worth": worth, "freq": f1, "shift": shift1, "sync2": sync2,
                 "gate": gate, "deint": deint}
 
-    def prefano(self, ri: torch.Tensor) -> dict:
+    def prefano(self, ri: torch.Tensor,
+                windows: torch.Tensor | None = None) -> dict:
         """(W, 2, fl) -> per-window candidate state, gates and deinterleaved
         symbols, each (W, C, ...), and ``refine_overflow`` (W,): coarse
         search on every window, then the refinement on the lanes the
         config picks (see the module doc), scattered back once
-        (jit_decoder.py:283-300, :732-863)."""
+        (jit_decoder.py:283-300, :732-863). ``windows``, a (W,) bool mask
+        (a multipass pass after the first), marks the candidates of the
+        other windows invalid before the lanes are picked."""
         dcfg = self.config.demod
         z_all = torch.complex(ri[:, 0], ri[:, 1])
         coarse = self._coarse_stage(z_all)
+        if windows is not None:
+            coarse["valid"] = coarse["valid"] & windows[:, None]
         marks.mark("compact", z_all)
         W, C = coarse["valid"].shape
         L = W * C
@@ -779,6 +845,100 @@ class DeviceDecoder:
             "osd": osd,
         }
 
+    def mp_tally(self) -> dict:
+        """``mp_counts`` on the host, by ``mp_names``: the decodes that ran
+        the passes (each captured replay and eager run), and over them the
+        frames subtracted, the new frames over subtract_max_lanes, the
+        duplicates dropped, and for each pass the windows it decoded and
+        its new spots. Waits for the card (one read); the serving path
+        never calls it."""
+        return dict(zip(self.mp_names, self.mp_counts.tolist()))
+
+    # -- multipass (pipeline/multipass.py::multipass_spots) -----------------
+
+    def _decode_passes(self, ri: torch.Tensor) -> torch.Tensor:
+        """The batch program at multipass.passes P > 1 (see the module
+        doc): (W, 2, fl) -> packed (W, P*C, 23)."""
+        mp = self.config.multipass
+        W = ri.shape[0]
+        dev = ri.device
+        res = ri.clone()                       # the residual, in place
+        windows = None                         # pass 1 decodes every one
+        outs, tally = [], []
+        attempts = torch.zeros(W, dtype=torch.int64, device=dev)
+        overflow = torch.zeros(W, dtype=torch.int64, device=dev)
+        dups = torch.zeros((), dtype=torch.int64, device=dev)
+        sub = torch.zeros((), dtype=torch.int64, device=dev)
+        over = torch.zeros((), dtype=torch.int64, device=dev)
+        for p in range(mp.passes):
+            out = self._fano_select_batch(self.prefano(res, windows))
+            if outs:
+                dup = out["success"] & self._duplicates(out, outs)
+                out["success"] = out["success"] & ~dup
+                dups = dups + dup.sum()
+            tally += [torch.full((), W, dtype=torch.int64, device=dev)
+                      if windows is None else windows.sum(),
+                      out["success"].sum()]
+            attempts = attempts + out["fano_attempts"]
+            overflow = overflow + out["fano_overflow"]
+            if p < mp.passes - 1:
+                marks.mark("subtract", res)
+                windows, n_sub, capped = self._subtract(res, out)
+                overflow = overflow + capped
+                sub = sub + n_sub
+                over = over + capped.sum()
+            outs.append(out)
+        self.mp_counts += torch.stack([
+            torch.ones((), dtype=torch.int64, device=dev), sub, over, dups,
+            *tally])
+        marks.mark("pack", ri)
+        for out in outs:
+            out["fano_attempts"], out["fano_overflow"] = attempts, overflow
+        return torch.cat([self._pack(out) for out in outs], dim=1)
+
+    def _duplicates(self, out: dict, earlier: list) -> torch.Tensor:
+        """(W, C) bool: the slots of ``out`` whose payload an earlier pass
+        reported in the same window with a frequency within DUP_FREQ_HZ
+        (multipass._is_duplicate, the gap taken in float64)."""
+        succ = torch.cat([e["success"] for e in earlier], dim=1)  # (W, K)
+        pay = torch.cat([e["payload"] for e in earlier], dim=1)
+        freq = torch.cat([e["freq"] for e in earlier], dim=1).double()
+        same = (out["payload"][:, :, None, :] == pay[:, None, :, :]).all(-1)
+        near = (out["freq"].double()[:, :, None] - freq[:, None, :]).abs() \
+            < DUP_FREQ_HZ
+        return (same & near & succ[:, None, :]).any(dim=2)
+
+    def _subtract(self, res: torch.Tensor, out: dict):
+        """Subtract the pass's decodes (``out["success"]``) from the
+        residual ``res`` in place: the batch's decodes window-major, the
+        first subtract_max_lanes of them (all W*C lanes at 0), in one
+        ``subtract_lanes`` call. -> (windows where something was
+        subtracted (W,) bool, frames subtracted (), frames over the cap
+        (W,))."""
+        mp = self.config.multipass
+        W, C = out["success"].shape
+        L = W * C
+        dev = res.device
+        new = out["success"].reshape(L)
+        ML = min(mp.subtract_max_lanes or L, L)
+        sel = torch.argsort((~new).to(torch.int8), stable=True)[:ML]
+        act = new[sel]
+        widx = torch.div(sel, C, rounding_mode="floor")
+        jig = out["jiggle"].reshape(L)[sel]
+        lag = out["shift"].reshape(L)[sel] + self.state["jiggles"][jig]
+
+        def lanes(k):
+            v = out[k]
+            return v.reshape((L,) + v.shape[2:])[sel]
+        subtract_lanes(res, widx, act, lanes("payload"), lanes("freq"), lag,
+                       lanes("mode"), lanes("drift"), lanes("slm_params"),
+                       cf=float(self.config.coarse.cf), nfilt=NFILT,
+                       freq_iters=FREQ_ITERS, lag_search=LAG_SEARCH)
+        done = torch.zeros(W, dtype=torch.int64, device=dev).index_add_(
+            0, widx, act.to(torch.int64))
+        capped = new.index_fill(0, sel, False).reshape(W, C).sum(dim=1)
+        return done > 0, act.sum(), capped
+
     def _osd_rescue(self, pre: dict, any_success: torch.Tensor,
                     payload: torch.Tensor, jbest: torch.Tensor):
         """On-device OSD (jit_decoder.py:1046-1118): worth candidates whose
@@ -969,11 +1129,17 @@ class DeviceDecoder:
                           out["osd"].to(f32)[..., None]], dim=-1)
 
     @staticmethod
-    def unpack_output(a) -> DeviceDecoderOutput:
-        """Packed (..., C, 23) float32 (tensor or array) -> typed output."""
+    def unpack_output(a, n_cand: int | None = None) -> DeviceDecoderOutput:
+        """Packed (..., S, 23) float32 (tensor or array) -> typed output.
+        ``n_cand`` C, given for a multipass output, sets ``pass_index`` to
+        each slot's pass, slot // C."""
         if isinstance(a, torch.Tensor):
             a = a.detach().cpu().numpy()
         a = np.asarray(a)
+        pass_index = None
+        if n_cand is not None:
+            pass_index = np.broadcast_to(
+                np.arange(a.shape[-2]) // n_cand, a.shape[:-1]).copy()
         return DeviceDecoderOutput(
             success=a[..., 0] > 0.5,
             valid=a[..., 1] > 0.5,
@@ -989,6 +1155,7 @@ class DeviceDecoder:
             fano_overflow=a[..., 0, 20].astype(np.int32),
             fano_attempts=a[..., 0, 21].astype(np.int32),
             osd=a[..., 22].astype(np.int32),
+            pass_index=pass_index,
         )
 
     @staticmethod
@@ -1005,7 +1172,8 @@ class DeviceDecoder:
     def spots(out: DeviceDecoderOutput, hashtable=None) -> list[Spot]:
         """One window's output -> pipeline.decoder.Spot list (host unpack).
         An OSD candidate whose payload fails protocol unpacking is dropped
-        (jit_decoder.py:1244-1275)."""
+        (jit_decoder.py:1244-1275). A multipass output's spots carry their
+        pass (``pass_index``) and their candidate within it."""
         with span("decoder.spots"):
             spots = []
             for c in np.flatnonzero(out.success):
@@ -1029,6 +1197,12 @@ class DeviceDecoder:
                     unpacked=u,
                     osd=int(out.osd[c]),
                 ))
+            if out.pass_index is not None and spots:
+                # slot p * C + c: pass p's candidate c
+                C = out.success.shape[-1] // (int(out.pass_index[-1]) + 1)
+                for s in spots:
+                    s.pass_index = int(out.pass_index[s.candidate])
+                    s.candidate %= C
             return spots
 
 
@@ -1039,4 +1213,4 @@ def _offsets_f32(step: float, device) -> torch.Tensor:
 
 
 __all__ = ["DeviceDecoder", "DeviceDecoderOutput", "FANO_MODES",
-           "check_slice"]
+           "MP_PASS_TALLY", "MP_TALLY", "check_slice", "mp_tally_names"]

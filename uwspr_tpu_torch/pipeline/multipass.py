@@ -132,6 +132,17 @@ def _residual_freq_drift(c: np.ndarray, cnt: np.ndarray
     return (f_early + f_late) / 2.0, 2.0 * (f_late - f_early)
 
 
+# the subtraction's settings, also the device multipass's
+# (pipeline/device_decoder.py): the gains' boxcar in symbols, the residual
+# frequency and drift polishes, the lag polish in +- samples, and the
+# frequency gap within which a later spot of an earlier payload is a
+# duplicate
+NFILT = 5
+FREQ_ITERS = 3
+LAG_SEARCH = 16
+DUP_FREQ_HZ = 5.0
+
+
 def _smooth_gains(c: np.ndarray, cnt: np.ndarray, nfilt: int) -> np.ndarray:
     """Count-weighted complex boxcar over symbols: channel estimates from
     partially-in-window symbols contribute proportionally."""
@@ -142,8 +153,8 @@ def _smooth_gains(c: np.ndarray, cnt: np.ndarray, nfilt: int) -> np.ndarray:
 
 
 def subtract_spot(z: np.ndarray, spot, config: PipelineConfig | None = None,
-                  nfilt: int = 5, freq_iters: int = 3,
-                  lag_search: int = 16) -> np.ndarray:
+                  nfilt: int = NFILT, freq_iters: int = FREQ_ITERS,
+                  lag_search: int = LAG_SEARCH) -> np.ndarray:
     """Return a copy of window ``z`` with the decoded frame of ``spot``
     subtracted.
 
@@ -198,14 +209,14 @@ def subtract_spot(z: np.ndarray, spot, config: PipelineConfig | None = None,
     return out
 
 
-def _is_duplicate(spot, seen, freq_tol: float = 5.0) -> bool:
+def _is_duplicate(spot, seen, freq_tol: float = DUP_FREQ_HZ) -> bool:
     return any(spot.payload == s.payload
                and abs(spot.freq - s.freq) < freq_tol for s in seen)
 
 
 def multipass_spots(window: np.ndarray, decode_fn,
                     config: PipelineConfig | None = None,
-                    passes: int = 2, nfilt: int = 5) -> list:
+                    passes: int = 2, nfilt: int = NFILT) -> list:
     """Run ``decode_fn(window) -> list[Spot]`` up to ``passes`` times,
     subtracting every newly decoded frame between passes.
 

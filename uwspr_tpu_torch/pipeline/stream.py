@@ -103,7 +103,11 @@ def device_result(dec: DeviceDecoder, one: DeviceDecoderOutput,
                   hashtable: HashTable | None) -> DecodeResult:
     """One window's DeviceDecoder output -> DecodeResult."""
     r = DecodeResult(spots=dec.spots(one, hashtable))
-    r.n_candidates = int(one.valid.sum())
+    # a multipass output's candidates: the most of any pass, as
+    # StreamDecoder(passes > 1) counts them
+    r.n_candidates = (int(one.valid.sum()) if one.pass_index is None
+                      else max(int(one.valid[one.pass_index == p].sum())
+                               for p in np.unique(one.pass_index)))
     r.n_fano_attempts = int(one.fano_attempts)
     r.n_lanes_shed = int(one.fano_overflow)
     return r

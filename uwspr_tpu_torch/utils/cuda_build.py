@@ -84,6 +84,13 @@ _SIGNATURES = {
                         _C.c_int, _C.c_void_p, _C.c_int, _C.c_void_p,
                         _C.c_void_p],
     "uwspr_mark": [_C.c_int, _C.c_void_p],
+    "uwspr_subtract_lanes_smem": [_C.c_int],
+    "uwspr_subtract_lanes": [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                             _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                             _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                             _C.c_void_p, _C.c_void_p, _C.c_double,
+                             _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
+                             _C.c_void_p, _C.c_void_p],
 }
 
 _lock = threading.Lock()
